@@ -1,0 +1,66 @@
+"""Every random draw on the online frame path, in one place.
+
+JAX's counter-based PRNG cannot be reproduced in torch, so the port never
+draws inline: each consumer asks a ``Draws`` object for the numbers it needs,
+by name. The default ``Draws`` takes them from one explicit
+``torch.Generator`` seeded from ``seed``. A caller (a parity test) can pass
+any object with the same methods to feed in numbers drawn elsewhere; the
+data-dependent draws receive the counts they depend on, so an injected
+source can reproduce them exactly.
+
+The draws, with the JAX package's line that makes them:
+
+- ``seed_uniform(p, minval, maxval)``: (P,) uniforms that rank the GPG seed
+  candidates (``grasping/samplers.py:349-356``).
+- ``crop_perm(p)``: the scene shuffle of the prefix crop (``ops/crop.py:260``).
+- ``crop_windows(count, num_out)``: (r (G, num_out), start (G, 1)) rank
+  draws in ``[0, max(count, 1))`` (``ops/crop.py:225-229``).
+- ``crop_keys(g, p_len)``: (G, P') float32 selection keys of the top-k crop
+  (``ops/crop.py:357``).
+- ``crop_ranks(count, num_out)``: (G, num_out) with-replacement ranks of the
+  top-k crop (``ops/crop.py:376``).
+- ``resample(n, num_points, p_in)``: (n, num_points) scorer resample indices
+  in ``[0, p_in)`` (``inference/scorer.py:70-77``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+class Draws:
+    """Draws from an explicit ``torch.Generator`` on ``device``."""
+
+    def __init__(self, seed: int = 0, device="cpu"):
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(int(seed))
+
+    def _rand(self, *shape):
+        return torch.rand(shape, generator=self.gen, device=self.device)
+
+    def seed_uniform(self, p: int, minval: float = 0.0, maxval: float = 1.0):
+        return self._rand(p) * (maxval - minval) + minval
+
+    def crop_perm(self, p: int):
+        return torch.randperm(p, generator=self.gen, device=self.device)
+
+    def _below(self, count, shape):
+        hi = torch.clamp(count, min=1).to(self.device)
+        hi = hi.reshape((-1,) + (1,) * (len(shape) - 1))
+        u = self._rand(*shape)
+        return torch.minimum((u * hi).long(), hi - 1)
+
+    def crop_windows(self, count, num_out: int):
+        g = count.shape[0]
+        return self._below(count, (g, num_out)), self._below(count, (g, 1))
+
+    def crop_keys(self, g: int, p_len: int):
+        return self._rand(g, p_len)
+
+    def crop_ranks(self, count, num_out: int):
+        return self._below(count, (count.shape[0], num_out))
+
+    def resample(self, n: int, num_points: int, p_in: int):
+        return torch.randint(0, p_in, (n, num_points), generator=self.gen,
+                             device=self.device)

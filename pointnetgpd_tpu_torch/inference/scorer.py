@@ -1,0 +1,213 @@
+"""Batched grasp-candidate scorer: crop + resample + forward + vote + rank.
+
+Port of ``pointnetgpd_tpu/inference/scorer.py``. The deployed reference
+applies softmax on top of the model's log_softmax output (main_test.py:65-66);
+that quirk is kept, as is the vote's tie break toward the smallest class
+(``scipy.stats.mode``, main_test.py:93). Random numbers come from a
+``draws.Draws``-like object. ``mesh`` sharding and ``as_dtype`` come in a
+later slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..draws import Draws
+from ..models.convert import (load_reference_checkpoint,
+                              pointnet_cls_from_state_dict)
+from ..ops.crop import collect_candidate_clouds
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def _to_host(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+@dataclass
+class PendingScore:
+    """A dispatched scene score: the device tensors and the caller's extras
+    that ``GraspScorer.collect`` copies to the host in one go."""
+
+    out: Any                   # device tuple from score_candidates_fused
+    extra_fetch: Any           # caller tensors copied with it (or None)
+    g: int                     # real (unpadded) candidate count
+    empty: dict | None = None  # precomputed result for 0 candidates
+
+
+@torch.no_grad()
+def score_cloud_batch(model, clouds, valid, draws, *, num_points: int = 500,
+                      repeat: int = 1):
+    """Score (G, P, 3) candidate clouds with repeat-voting: each candidate
+    is resampled ``repeat`` times to ``num_points`` points (uniform with
+    replacement, kinect2grasp.py:472-478), scored in one forward, and
+    majority-voted. Returns (pred (G,), prob (G, k), votes (G, repeat))."""
+    g, p_in, _ = clouds.shape
+    idx = draws.resample(g * repeat, num_points, p_in).to(clouds.device)
+    rep = clouds.repeat_interleave(repeat, dim=0)
+    batch = rep[torch.arange(g * repeat, device=clouds.device)[:, None],
+                idx.long()]
+    logp, _ = model(batch.contiguous())
+    probs = F.softmax(logp, dim=-1)          # reference quirk (main_test:66)
+    k_cls = probs.shape[-1]
+    probs = probs.reshape(g, repeat, k_cls)
+    votes = torch.argmax(probs, dim=-1)
+    counts = F.one_hot(votes, k_cls).sum(dim=1)
+    pred = torch.argmax(counts, dim=-1)      # ties -> smallest class
+    agree = (votes == pred[:, None]).to(probs.dtype)
+    denom = torch.clamp(agree.sum(dim=1), min=1.0)
+    prob = torch.einsum("gr,grk->gk", agree, probs) / denom[:, None]
+    pred = torch.where(valid, pred, 0)
+    prob = torch.where(valid[:, None], prob, 0.0)
+    return pred, prob, votes
+
+
+@torch.no_grad()
+def score_candidates_fused(model, pc, cand_frames, valid_in, hand_depth,
+                           width, draws, *, num_points: int = 500,
+                           repeat: int = 1, min_points: int = 50,
+                           crop_recenter: bool = False):
+    """The whole per-frame scoring pipeline: crop + resample + forward +
+    vote + rank. Returns (pred, prob, counts, valid, good, order), where
+    ``order`` ranks candidates by best-class probability, descending, with
+    invalid or not-good candidates last."""
+    clouds, counts, valid = collect_candidate_clouds(
+        cand_frames[:, 0], cand_frames[:, 1], cand_frames[:, 2],
+        cand_frames[:, 3], pc, hand_depth, width, draws,
+        num_out=num_points, min_point_limit=min_points,
+        recenter=crop_recenter)
+    valid = valid & valid_in
+    pred, prob, _ = score_cloud_batch(model, clouds, valid, draws,
+                                      num_points=num_points, repeat=repeat)
+    best_class = prob.shape[-1] - 1
+    score = prob[:, best_class]
+    good = (pred == best_class) & valid
+    order = torch.argsort(torch.where(good, -score, torch.inf), stable=True)
+    return pred, prob, counts, valid, good, order
+
+
+@dataclass
+class GraspScorer:
+    """Loaded model + padding policy. Candidate counts vary per frame; the
+    candidate axis is padded to a multiple of ``pad_to`` as in the JAX
+    package, whose results depend on it (the crop strategy switches on the
+    padded count)."""
+
+    model: Any
+    k: int = 3
+    num_points: int = 500
+    repeat: int = 1
+    pad_to: int = 64
+    min_points: int = 50
+    crop_recenter: bool = False
+    device: Any = "cuda"
+    _best_class: int = field(init=False)
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        self.model = self.model.to(self.device).eval()
+        self._best_class = self.k - 1
+
+    @classmethod
+    def from_checkpoint(cls, path, ref_paths=(), device="cuda", **kw):
+        """Reference checkpoint (pickled module, state_dict or .npz)."""
+        sd = load_reference_checkpoint(path, ref_paths)
+        model = pointnet_cls_from_state_dict(sd, device=device)
+        if kw.setdefault("k", model.k) != model.k:
+            raise ValueError(f"checkpoint is {model.k}-class but "
+                             f"k={kw['k']} was requested")
+        return cls(model=model, device=device, **kw)
+
+    def score_candidates(self, pc, candidates, hand_depth, width,
+                         seed: int = 0, valid=None, extra_fetch=None,
+                         draws=None):
+        """Scene cloud + (G, 5, 3) GPG candidates -> dict with pred / prob /
+        score per candidate and the ranked ``good_indices``
+        (kinect2grasp.py:500-514); with ``extra_fetch``, (dict, extras)."""
+        return self.collect(self.dispatch_candidates(
+            pc, candidates, hand_depth, width, seed=seed, valid=valid,
+            extra_fetch=extra_fetch, draws=draws))
+
+    def dispatch_candidates(self, pc, candidates, hand_depth, width,
+                            seed: int = 0, valid=None, extra_fetch=None,
+                            draws=None):
+        """Enqueue the scoring on the device and return a ``PendingScore``
+        without copying anything to the host."""
+        dev = self.device
+        if isinstance(candidates, torch.Tensor):
+            cand = candidates.reshape(-1, 5, 3).to(dev, torch.float32)
+        else:
+            cand = torch.from_numpy(np.asarray(candidates, np.float32)
+                                    .reshape(-1, 5, 3)).to(dev)
+        if cand.shape[0] == 0:
+            empty = {
+                "pred": np.zeros((0,), np.int64),
+                "prob": np.zeros((0, self.k), np.float32),
+                "score": np.zeros((0,), np.float32),
+                "counts": np.zeros((0,), np.int64),
+                "valid": np.zeros((0,), bool),
+                "good_indices": np.zeros((0,), np.int64),
+            }
+            return PendingScore(out=None, extra_fetch=extra_fetch, g=0,
+                                empty=empty)
+        g = cand.shape[0]
+        g_pad = max(_round_up(g, self.pad_to), self.pad_to)
+        # pad with unit frames to keep the crop's normalize well-defined
+        pad_frame = torch.zeros((g_pad - g, 5, 3), device=dev)
+        pad_frame[:, 1, 0] = 1.0
+        pad_frame[:, 2, 1] = 1.0
+        pad_frame[:, 3, 2] = 1.0
+        cand_p = torch.cat([cand, pad_frame])
+        valid_in = torch.arange(g_pad, device=dev) < g
+        if valid is not None:
+            v = torch.as_tensor(np.asarray(valid, bool) if not isinstance(
+                valid, torch.Tensor) else valid).to(dev, torch.bool)
+            valid_in = valid_in & torch.cat(
+                [v, torch.zeros((g_pad - g,), dtype=torch.bool, device=dev)])
+        if isinstance(pc, torch.Tensor):
+            pc_d = pc.to(dev, torch.float32)
+        else:
+            pc_d = torch.from_numpy(np.asarray(pc, np.float32)).to(dev)
+        out = score_candidates_fused(
+            self.model, pc_d, cand_p, valid_in, float(hand_depth),
+            float(width), draws or Draws(seed, dev),
+            num_points=self.num_points, repeat=self.repeat,
+            min_points=self.min_points, crop_recenter=self.crop_recenter)
+        return PendingScore(out=out, extra_fetch=extra_fetch, g=g)
+
+    def collect(self, pending: PendingScore):
+        """Copy the result (and the caller's extras) to the host and
+        postprocess; returns the dict, or (dict, extras)."""
+        if pending.out is None:
+            if pending.extra_fetch is not None:
+                return pending.empty, _to_host(pending.extra_fetch)
+            return pending.empty
+        g = pending.g
+        pred, prob, counts, valid, good, order = _to_host(pending.out)
+        pred, prob, counts = pred[:g], prob[:g], counts[:g]
+        valid, good = valid[:g], good[:g]
+        order = order[(order < g) & good[np.minimum(order, g - 1)]][:g]
+        result = {
+            "pred": pred,
+            "prob": prob,
+            "score": prob[:, self._best_class],
+            "counts": counts,
+            "valid": valid,
+            "good_indices": order,
+        }
+        if pending.extra_fetch is not None:
+            return result, _to_host(pending.extra_fetch)
+        return result

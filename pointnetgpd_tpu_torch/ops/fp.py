@@ -1,0 +1,50 @@
+"""float32 arithmetic in the association the reference computes.
+
+The JAX package's CPU build contracts ``a * b + c`` into fused multiply-adds.
+Where a result feeds a discrete decision (a neighbor chosen among points at
+equal distance on a voxel grid, a point on a panel-box bound), the port must
+round the same way, or the two stacks pick different neighbors and count
+different points. These helpers spell out those roundings:
+
+- ``fma(a, b, c)``: ``a * b + c`` rounded once to float32. The product of two
+  float32 values is exact in float64, so one float64 add and one rounding
+  give the fused result (a double rounding can differ in about 1 of 2**28
+  cases, far below anything the tests can see).
+- ``dot3``: a 3-term reduction, ``fma(a2, b2, fma(a1, b1, a0 * b0))``, the
+  order of a dot product or ``sum(x * x)`` over a length-3 axis.
+- ``lin3``: a 3-term add chain ``a0 * x + a1 * y + a2 * z``, contracted as
+  ``fma(a2, z, fma(a0, x, a1 * y))``.
+
+The CUDA kernels issue the same operations explicitly (``__fmaf_rn``), so the
+kernel and its plain version agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _f64(v):
+    # Python scalars enter as float32 first, as JAX's weak-typed scalars do
+    return torch.as_tensor(v, dtype=torch.float32).to(torch.float64)
+
+
+def fma(a, b, c):
+    """float32 ``a * b + c`` with a single rounding."""
+    return (_f64(a) * _f64(b) + _f64(c)).to(torch.float32)
+
+
+def dot3(a0, b0, a1, b1, a2, b2):
+    """``a0*b0 + a1*b1 + a2*b2`` in reduction order."""
+    return fma(a2, b2, fma(a1, b1, a0 * b0))
+
+
+def lin3(a0, x, a1, y, a2, z):
+    """``a0*x + a1*y + a2*z`` in add-chain order."""
+    return fma(a2, z, fma(a0, x, a1 * y))
+
+
+def sumsq3(v):
+    """``sum(v * v, axis=-1)`` for (..., 3) float32 ``v``."""
+    return dot3(v[..., 0], v[..., 0], v[..., 1], v[..., 1],
+                v[..., 2], v[..., 2])
