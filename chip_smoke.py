@@ -17,10 +17,14 @@ Phases, in order; any failure exits non-zero:
    golden 3-class checkpoint, DetectorConfig() defaults and
    cloud_pad_to=4096. The launch counters are zeroed just before and read
    just after: K1 must launch 3 times and K2 twice per frame. Scores must be
-   finite, in [0, 1] and in descending ranked order, with n_valid > 0;
-6. timings with CUDA events (warm, many launches) of each kernel, its plain
-   version and, for K2, one PyTorch yardstick (three torch.matmul + max,
-   TF32 off) that the port never calls; warm ms per frame. With
+   finite, in [0, 1] and in descending ranked order, with n_valid > 0. The
+   first frame is run again with both kernels swapped for their plain
+   versions (same seed, so the same draws): candidates, counts and
+   predictions must be equal and scores within 1e-4;
+6. timings with CUDA events (warm, many launches) of each kernel alone (K1:
+   the bare C launch on prepared arguments; its wrapper is timed apart), its
+   plain version and, for K2, one PyTorch yardstick (three torch.matmul +
+   max, TF32 off) that the port never calls; warm ms per frame. With
    ``--profile``, also a torch.profiler breakdown of a few warm frames.
 
 TF32 is switched off for matmuls and cuDNN: the port keeps fp32 throughout.
@@ -100,28 +104,41 @@ def profile_frames(torch, det, pts, cam, card, n=3):
             det.process_frame(pts, cam, seed=300 + s)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
+    from torch.autograd import DeviceType
 
-    def dev_us(e, attr):
-        return getattr(e, attr.replace("cuda", "device"),
-                       getattr(e, attr, 0.0))
-
-    # frame.* labels also appear as device-side ranges: keep them out of
-    # the kernel sums
-    kernels = [e for e in events if not e.key.startswith("frame.")]
-    busy = sum(dev_us(e, "self_cuda_time_total") for e in kernels)
+    # device activity = the events that ran on the card (kernels, copies,
+    # memsets), not the host ops that launched them and not the frame.*
+    # labels, which also appear as device-side ranges
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.key.startswith("frame.")]
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in dev_events)
+    busy = total = 0.0
+    end = -float("inf")
+    for a, b in spans:                    # union of the device intervals
+        total += b - a
+        if b > end:
+            busy += b - max(a, end)
+            end = b
     print(f"profile ({n} frames, {card}): wall {wall_us / n / 1e3:.2f} ms "
-          f"per frame, device busy {busy / n / 1e3:.2f} ms per frame "
-          f"({100 * busy / wall_us:.1f}% busy)")
-    stages = [e for e in events if e.key.startswith("frame.")]
-    for e in sorted(stages, key=lambda e: e.key):
-        if e.cpu_time_total > 0:
+          f"per frame, device busy {busy / n / 1e3:.3f} ms per frame "
+          f"({100 * busy / wall_us:.1f}% busy; {len(spans) // n} device "
+          f"events and {total / n / 1e3:.3f} ms of their summed time per "
+          f"frame)")
+    for e in sorted(prof.key_averages(), key=lambda e: e.key):
+        if e.key.startswith("frame.") and e.cpu_time_total > 0:
             print(f"  stage {e.key}: host {e.cpu_time_total / n / 1e3:.2f} "
                   f"ms per frame")
-    top = sorted(kernels, key=lambda e: -dev_us(e, "self_cuda_time_total"))
-    for e in top[:15]:
-        print(f"  kernel {dev_us(e, 'self_cuda_time_total') / n / 1e3:8.3f}"
-              f" ms/frame x{e.count // n:4d}  {e.key[:90]}")
+    by_name = {}
+    for e in dev_events:
+        t, c = by_name.get(e.key, (0.0, 0))
+        by_name[e.key] = (t + e.time_range.elapsed_us(), c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for key, (t, c) in top[:15]:
+        print(f"  device {t / n / 1e3:8.3f} ms/frame x{c // n:4d}  "
+              f"{key[:90]}")
 
 
 def main():
@@ -151,7 +168,6 @@ def main():
             print(f"  ptxas {line.strip()}")
 
     from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
-    from pointnetgpd_tpu_torch.models.convert import load_reference_checkpoint
     from pointnetgpd_tpu_torch.ops import gpg_counts as k1
     from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
     from pointnetgpd_tpu_torch.robot.node import DetectorConfig, GraspDetector
@@ -189,8 +205,10 @@ def main():
     act = ctx.active
     n_act = int(act.sum())
     p_cloud = ctx.points.shape[0]
+    p_real = int((ctx.points[:, 0] > -9.9e5).sum())   # sentinels excluded
     print(f"K1 inputs: F={ctx.f} frames ({n_act} active), P={p_cloud} "
-          f"(bucket), shifts {[r[2].shape[1] for r in rec['k1']]}",
+          f"(bucket; {p_real} real points), shifts "
+          f"{[r[2].shape[1] for r in rec['k1']]}",
           flush=True)
     k1_err = 0
     for _, fx, sc, is_y in rec["k1"]:
@@ -259,25 +277,61 @@ def main():
         if len(sc_rank) > 1 and not (np.diff(sc_rank) <= 0).all():
             fail("ranked scores not descending")
 
+    # the first frame again through the plain versions of both kernels
+    def plain1(ctx, fx, sc, is_y):
+        return k1.gpg_scan_counts_torch(ctx.points, ctx.seeds, ctx.rot_rows,
+                                        fx, sc, ctx.boxes, scan_is_y=is_y)
+
+    k1.GpgScanContext._launch, k2._launch = plain1, k2.trunk_reference
+    try:
+        plain = det.process_frame(pts, cam, seed=0)
+    finally:
+        k1.GpgScanContext._launch, k2._launch = launch1, launch2
+    got = outs[0]
+    if got["n_valid"] != plain["n_valid"]:
+        fail(f"n_valid {got['n_valid']} on the main path, "
+             f"{plain['n_valid']} on the plain route")
+    e_frames = float(np.abs(got["all_frames"] - plain["all_frames"]).max())
+    e_scores = float(np.abs(got["all_scores"] - plain["all_scores"]).max())
+    print(f"main path vs plain route (seed=0): n_valid {got['n_valid']} vs "
+          f"{plain['n_valid']}, pred equal "
+          f"{np.array_equal(got['pred'], plain['pred'])}, counts equal "
+          f"{np.array_equal(got['counts'], plain['counts'])}, max |frame "
+          f"err| {e_frames:.2e} (1e-5), max |score err| {e_scores:.2e} "
+          f"(1e-4), ranked {len(got['scores'])} vs {len(plain['scores'])}",
+          flush=True)
+    if (not np.array_equal(got["pred"], plain["pred"])
+            or not np.array_equal(got["counts"], plain["counts"])
+            or e_frames > 1e-5 or e_scores > 1e-4
+            or len(got["scores"]) != len(plain["scores"])):
+        fail("the main path disagrees with its plain route")
+
     # 6. timings
     timing = {}
+    lib = _build.library()
     for idx, (_, fx, sc, is_y) in enumerate(rec["k1"]):
-        timing[f"k1_{idx}"] = cuda_ms(torch, lambda: launch1(
+        # keep the output and the prepared tensors alive while timing
+        out_k, args, keep = ctx.kernel_args(fx, sc, is_y)
+        timing[f"k1_{idx}"] = cuda_ms(torch, lambda: _build.check(
+            lib.gpg_counts_launch(*args), "gpg_counts_launch"), iters=50)
+        timing[f"k1_wrap_{idx}"] = cuda_ms(torch, lambda: launch1(
             ctx, fx, sc, is_y), iters=50)
         timing[f"k1_plain_{idx}"] = cuda_ms(torch, lambda: (
             k1.gpg_scan_counts_torch(ctx.points, ctx.seeds, ctx.rot_rows, fx,
                                      sc, ctx.boxes, scan_is_y=is_y)),
             iters=2, warm=1)
     k1_ms = sum(timing[f"k1_{i}"] for i in range(3))
+    k1_wrap = sum(timing[f"k1_wrap_{i}"] for i in range(3))
     k1_plain = sum(timing[f"k1_plain_{i}"] for i in range(3))
-    # K1 bound: per scan, every (active frame, cloud point) pair needs three
-    # 3-term coordinate chains (18 flops) and the 16 slab compares of the 4
-    # boxes; bytes = cloud + frames + counts
+    # K1 bound: per scan, every (active frame, real cloud point) pair needs
+    # three 3-term coordinate chains (18 flops) and the 16 slab compares of
+    # the 4 boxes; bytes = real cloud + frames + counts. The sentinel tail
+    # of the bucket is skipped by the kernel and needs no work.
     k1_ops = k1_bytes = 0
     for _, fx, sc, _ in rec["k1"]:
         ns = sc.shape[1]
-        k1_ops += n_act * p_cloud * 34
-        k1_bytes += p_cloud * 12 + ctx.f * (13 + ns) * 4 + ctx.f * ns * 16
+        k1_ops += n_act * p_real * 34
+        k1_bytes += p_real * 12 + ctx.f * (13 + ns) * 4 + ctx.f * ns * 16
     k1_bound = max(k1_ops / PEAK_FP32_FLOPS, k1_bytes / PEAK_BYTES) * 1e3
     k1_by = "operations" if k1_ops / PEAK_FP32_FLOPS > k1_bytes / PEAK_BYTES \
         else "bytes"
@@ -313,10 +367,12 @@ def main():
     print(f"timings on {card}:", flush=True)
     for i, (_, _, sc, is_y) in enumerate(rec["k1"]):
         print(f"  K1 scan ns={sc.shape[1]}: kernel {timing[f'k1_{i}']:.4f} ms,"
-              f" plain {timing[f'k1_plain_{i}']:.3f} ms ({card})")
-    print(f"  K1 per frame (3 scans): kernel {k1_ms:.4f} ms, plain "
-          f"{k1_plain:.3f} ms, bound {k1_bound:.5f} ms ({k1_by}; "
-          f"{k1_ops:.3e} ops, {k1_bytes} bytes) ({card})")
+              f" with wrapper {timing[f'k1_wrap_{i}']:.4f} ms, plain "
+              f"{timing[f'k1_plain_{i}']:.3f} ms ({card})")
+    print(f"  K1 per frame (3 scans): kernel {k1_ms:.4f} ms, wrapper "
+          f"overhead {k1_wrap - k1_ms:.4f} ms, plain {k1_plain:.3f} ms, "
+          f"bound {k1_bound:.5f} ms ({k1_by}; {k1_ops:.3e} ops, {k1_bytes} "
+          f"bytes) ({card})")
     for name in ("64x500", "512x750"):
         print(f"  K2 {name}: kernel {timing[f'k2_{name}']:.4f} ms, plain "
               f"{timing[f'k2_plain_{name}']:.4f} ms, library (3 matmul + "

@@ -9,7 +9,9 @@ takes channels-last ``(B, N, C)``, as the JAX API does.
 Both shared-MLP trunks run through ``ops.pointnet_trunk.fused_trunk`` (the
 hand-written CUDA kernel on the card, its plain version on the CPU): the
 STN3d trunk as ``relu(max(.))`` (ReLU and max commute) and the PointNetfeat
-trunk on ``x @ trans``. The FC heads and the 3x3 ``bmm`` stay plain torch.
+trunk on ``x @ trans``. Each trunk folds its BatchNorm into the weights once
+and reuses the folded tuple until one of its parameters or buffers changes.
+The FC heads and the 3x3 ``bmm`` stay plain torch.
 ``DualPointNetCls`` and ``PointNetDenseCls`` come in a later slice.
 """
 
@@ -31,7 +33,30 @@ class _EvalOnly(nn.Module):
         return super().train(False)
 
 
-class STN3d(_EvalOnly):
+class _Trunk(_EvalOnly):
+    """A module with ``conv1..3`` and ``bn1..3`` whose shared MLP runs
+    through ``fused_trunk``."""
+
+    _folded = None
+    _folded_key = None
+
+    def folded_trunk(self):
+        """The BN-folded trunk weights, recomputed only when a tensor of
+        the trunk was moved, reloaded or edited in place since the last
+        fold (keyed on each tensor's storage and in-place version)."""
+        mods = [getattr(self, f"{kind}{i}") for i in (1, 2, 3)
+                for kind in ("conv", "bn")]
+        key = tuple((t.data_ptr(), t._version) for m in mods
+                    for t in (*m.parameters(recurse=False),
+                              *m.buffers(recurse=False)))
+        if key != self._folded_key:
+            with torch.no_grad():
+                self._folded = fold_trunk_params(self)
+            self._folded_key = key
+        return self._folded
+
+
+class STN3d(_Trunk):
     """Input transform network (ref pointnet.py:8-45)."""
 
     def __init__(self, input_chann: int = 3):
@@ -51,7 +76,7 @@ class STN3d(_EvalOnly):
 
     def forward(self, x):
         """x (B, N, C) -> (B, 3, 3) = fc(x) + I."""
-        h = torch.relu(fused_trunk(x, fold_trunk_params(self)))
+        h = torch.relu(fused_trunk(x, self.folded_trunk()))
         h = linear_bn_relu(self.fc1, self.bn4, h)
         h = linear_bn_relu(self.fc2, self.bn5, h)
         h = linear(self.fc3, h)
@@ -59,7 +84,7 @@ class STN3d(_EvalOnly):
                                                device=h.device)
 
 
-class PointNetfeat(_EvalOnly):
+class PointNetfeat(_Trunk):
     """STN + shared MLP + max-pool global feature (ref pointnet.py:123-154)."""
 
     def __init__(self, input_chann: int = 3):
@@ -77,7 +102,7 @@ class PointNetfeat(_EvalOnly):
         """x (B, N, C) -> (global (B, 1024), trans (B, 3, 3))."""
         trans = self.stn(x)
         x = torch.bmm(x, trans)
-        return fused_trunk(x, fold_trunk_params(self)), trans
+        return fused_trunk(x, self.folded_trunk()), trans
 
 
 class PointNetCls(_EvalOnly):

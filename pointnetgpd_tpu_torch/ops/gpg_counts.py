@@ -142,6 +142,9 @@ class GpgScanContext:
         dist = torch.linalg.norm(sdg - self.ctr[:, None, :], dim=-1)
         self.seed_r = torch.where(actg, dist, 0.0).amax(dim=1)
         self.active_u8 = act[:self.f].to(torch.uint8).contiguous()
+        self.boxes_c = ctypes.cast(
+            (ctypes.c_float * 24)(*self.boxes.reshape(-1).tolist()),
+            ctypes.c_void_p)
         self.corner = float(np.max(np.linalg.norm(
             np.abs(self.boxes).reshape(-1, 3), axis=-1)))
 
@@ -153,8 +156,11 @@ class GpgScanContext:
                 scan_shifts, self.boxes, scan_is_y=scan_is_y)
         return self._launch(fixed_shift, scan_shifts, scan_is_y)
 
-    def _launch(self, fixed_shift, scan_shifts, scan_is_y):
-        global launches
+    def kernel_args(self, fixed_shift, scan_shifts, scan_is_y):
+        """Check the shifts and prepare one kernel launch. Returns the
+        zeroed (F, Ns, 4) output, the argument tuple of
+        ``gpg_counts_launch`` (None when there is nothing to count) and the
+        tensors that must outlive the launch."""
         dev = self.points.device
         fx = fixed_shift.to(dev, torch.float32).contiguous()
         sc = scan_shifts.to(dev, torch.float32).contiguous()
@@ -167,21 +173,27 @@ class GpgScanContext:
                              f"got {ns}")
         out = torch.zeros((f, ns, 4), dtype=torch.int32, device=dev)
         if f == 0 or self.points.shape[0] == 0:
-            return out
+            return out, None, ()
         # per-block pruning sphere: seed sphere + the scan's reach; blocks
         # without an active frame get radius -1 (always skipped)
         reach = (fx.abs().max() + sc.abs().max() + self.corner)
         rad = torch.where(self.any_active, self.seed_r + reach, -1.0)
         spheres = torch.cat([self.ctr, rad[:, None]], dim=1).contiguous()
-        boxes = (ctypes.c_float * 24)(*self.boxes.reshape(-1).tolist())
-        lib = _build.library()
-        err = lib.gpg_counts_launch(
-            self.points.data_ptr(), self.points.shape[0],
-            self.seeds.data_ptr(), self.rot_rows.data_ptr(), fx.data_ptr(),
-            sc.data_ptr(), f, ns, self.active_u8.data_ptr(),
-            spheres.data_ptr(), self.tile_box.data_ptr(),
-            ctypes.cast(boxes, ctypes.c_void_p), int(bool(scan_is_y)),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        args = (self.points.data_ptr(), self.points.shape[0],
+                self.seeds.data_ptr(), self.rot_rows.data_ptr(),
+                fx.data_ptr(), sc.data_ptr(), f, ns,
+                self.active_u8.data_ptr(), spheres.data_ptr(),
+                self.tile_box.data_ptr(), self.boxes_c, int(bool(scan_is_y)),
+                out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        return out, args, (fx, sc, spheres)
+
+    def _launch(self, fixed_shift, scan_shifts, scan_is_y):
+        global launches
+        out, args, _keep = self.kernel_args(fixed_shift, scan_shifts,
+                                            scan_is_y)
+        if args is None:
+            return out
+        err = _build.library().gpg_counts_launch(*args)
         _build.check(err, "gpg_counts_launch")
         launches += 1
         return out

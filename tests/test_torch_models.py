@@ -29,6 +29,7 @@ from pointnetgpd_tpu_torch.models.convert import (
 )
 from pointnetgpd_tpu_torch.models.layers import batchnorm_eval, linear
 from pointnetgpd_tpu_torch.models.pointnet import PointNetCls, pointnet_cls_infer
+from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -138,6 +139,29 @@ def test_model_is_eval_only():
     assert not model.training
     with pytest.raises(NotImplementedError):
         model.train()
+
+
+def test_folded_trunk_is_reused_until_a_weight_changes(golden_model):
+    feat = golden_model.feat
+    first = feat.folded_trunk()
+    assert feat.folded_trunk() is first
+    assert feat.stn.folded_trunk() is feat.stn.folded_trunk()
+    x = torch.from_numpy(np.random.RandomState(5).randn(2, 40, 3)
+                         .astype(np.float32))
+    with torch.no_grad():
+        before = golden_model(x)[0]
+        old = feat.bn3.running_mean.clone()
+        feat.bn3.running_mean.add_(1.0)           # in-place edit: refold
+        try:
+            again = feat.folded_trunk()
+            assert again is not first
+            want = k2.fold_trunk_params(feat)
+            for g, w in zip(again, want):
+                np.testing.assert_array_equal(g.numpy(), w.numpy())
+        finally:
+            feat.bn3.running_mean.copy_(old)
+        np.testing.assert_array_equal(golden_model(x)[0].numpy(),
+                                      before.numpy())
 
 
 def _port_sources():
