@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's online grasp-detection frame on one GPU.
+"""Drive the PyTorch/CUDA port's two paths on one GPU: the online
+grasp-detection frame and the mesh -> SDF voxelizer (object preparation).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -48,6 +49,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 K2_TOL = 1e-4
+# K3's fp32 operations per (point, triangle) pair, counted from the loop body
+# of csrc/point_triangle.cu as written (a fused multiply-add counts as the
+# multiply and the add it replaces; compares and selects count one each):
+# 3 differences p - v x 3 vertices (9) + 6 dot products (30) + va, vb, vc (9)
+# + 15 compares and 2 differences for the region masks (17) + t_ab, t_ac,
+# t_bc (9) + the face denominator and v, w (5) + 3 coordinates of 6 selects
+# and 10 arithmetic (48) + the squared distance (8) + the running min (1)
+K3_OPS_PER_PAIR = 136
+K3_TOL = (1e-4, 1e-7)      # rtol, atol on distances (kernel vs plain)
+TORUS = (300, 100, 0.05, 0.02)   # nu, nv, R, r: 60,000 triangles
 
 
 def fail(msg):
@@ -139,6 +150,299 @@ def profile_frames(torch, det, pts, cam, card, n=3):
     for key, (t, c) in top[:15]:
         print(f"  device {t / n / 1e3:8.3f} ms/frame x{c // n:4d}  "
               f"{key[:90]}")
+
+
+def _kernel_modules():
+    from pointnetgpd_tpu_torch.ops import gpg_counts as k1
+    from pointnetgpd_tpu_torch.ops import point_triangle as k3
+    from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
+
+    return {"gpg_counts": k1, "pointnet_trunk": k2, "point_triangle": k3}
+
+
+def zero_counts():
+    for mod in _kernel_modules().values():
+        mod.launches = 0
+
+
+def read_counts():
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
+
+
+def torus_mesh(nu, nv, big_r, small_r):
+    """Watertight, non-convex torus of 2 * nu * nv triangles, outward
+    winding, vertices on the analytic surface."""
+    u = 2 * np.pi * np.arange(nu) / nu
+    w = 2 * np.pi * np.arange(nv) / nv
+    uu, ww = np.meshgrid(u, w, indexing="ij")
+    ring = big_r + small_r * np.cos(ww)
+    v = np.stack([ring * np.cos(uu), ring * np.sin(uu),
+                  small_r * np.sin(ww)], -1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a, b = i * nv + j, (i + 1) % nu * nv + j
+    c, d = (i + 1) % nu * nv + (j + 1) % nv, i * nv + (j + 1) % nv
+    f = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                        np.stack([a, c, d], -1).reshape(-1, 3)])
+    return v, f.astype(np.int32)
+
+
+def box_mesh(lo, hi):
+    v = np.array([[x, y, z] for x in (lo[0], hi[0])
+                  for y in (lo[1], hi[1]) for z in (lo[2], hi[2])], float)
+    f = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5],
+                  [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],
+                  [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]], np.int32)
+    return v, f
+
+
+def torus_sdf(points, big_r, small_r):
+    q = np.sqrt(points[..., 0] ** 2 + points[..., 1] ** 2) - big_r
+    return np.sqrt(q ** 2 + points[..., 2] ** 2) - small_r
+
+
+def grid_world(sdf):
+    """(nx, ny, nz, 3) float64 world coordinates of an SdfGrid's cells."""
+    o = sdf.origin.cpu().numpy().astype(np.float64)
+    res = float(sdf.resolution)
+    idx = [np.arange(n) for n in sdf.dims]
+    return o + res * np.stack(np.meshgrid(*idx, indexing="ij"), axis=-1)
+
+
+def close_distances(got, want):
+    """(all within K3_TOL, max |got - want|) for two distance tensors."""
+    rtol, atol = K3_TOL
+    diff = (got - want).abs()
+    return bool((diff <= atol + rtol * want.abs()).all()), float(diff.max())
+
+
+def voxelizer_phases(torch, card):
+    """Phase 7: the voxelizer path (see the module docstring). Returns the
+    ``point_triangle`` entry of the kernels line."""
+    import tempfile
+
+    from pointnetgpd_tpu_torch.database.mesh_processor import MeshProcessor
+    from pointnetgpd_tpu_torch.geometry.decomposition import (
+        approximate_convex_decomposition)
+    from pointnetgpd_tpu_torch.geometry.io import (read_sdf, write_obj,
+                                                   write_sdf)
+    from pointnetgpd_tpu_torch.geometry.mesh import Mesh3D
+    from pointnetgpd_tpu_torch.ops import mesh_to_sdf as vox
+    from pointnetgpd_tpu_torch.ops import point_triangle as k3
+    from pointnetgpd_tpu_torch.pipelines.prepare_objects import (
+        prepare_object_dir)
+
+    dev = torch.device("cuda")
+    launch3, parity = k3._launch, vox._inside_parity
+    plain3 = k3.min_point_triangle_dist2_torch
+
+    def with_plain_k3(fn):
+        k3._launch = plain3
+        try:
+            return fn()
+        finally:
+            k3._launch = launch3
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # a. the entry point at the reference's settings
+        v, f = torus_mesh(*TORUS)
+        mesh = Mesh3D(v, f)
+        obj_dir = os.path.join(tmp, "torus")
+        os.makedirs(os.path.join(obj_dir, "google_512k"))
+        write_obj(os.path.join(obj_dir, "google_512k", "nontextured.obj"),
+                  v, f)
+        rec = {}
+
+        def rec3(points, tri_data, sup_data):
+            out = launch3(points, tri_data, sup_data)
+            rec["k3"] = (points, tri_data, sup_data, out)
+            return out
+
+        def rec_parity(cols, z0, res, tri_v, *, nz, **kw):
+            rec["parity"] = (cols, z0, res, tri_v, nz)
+            return parity(cols, z0, res, tri_v, nz=nz, **kw)
+
+        k3._launch, vox._inside_parity = rec3, rec_parity
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            sdf_path = prepare_object_dir(obj_dir, sdf_dim=100, sdf_padding=5)
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            k3._launch, vox._inside_parity = launch3, parity
+        print(f"voxelizer path: prepare_object_dir(torus, 60,000 triangles, "
+              f"sdf_dim=100, sdf_padding=5) {cold_s:.2f} s cold, launches "
+              f"{launches}", flush=True)
+        if launches != {"gpg_counts": 0, "pointnet_trunk": 0,
+                        "point_triangle": 1}:
+            fail("the voxelizer path must launch K3 once and K1, K2 never")
+        sdf = read_sdf(sdf_path)
+        res = float(sdf.resolution)
+        data = sdf.data.cpu().numpy()
+        analytic = torus_sdf(grid_world(sdf), *TORUS[2:])
+        err = float(np.abs(data - analytic).max())
+        far = np.abs(analytic) > 0.02 * res
+        flips = int((np.sign(data[far]) != np.sign(analytic[far])).sum())
+        print(f"torus SDF: dims {sdf.dims}, res {res:.6e} m, max |sdf - "
+              f"analytic| = {err:.3e} m = {err / res:.4f} res (limit 0.02 "
+              f"res), sign disagreements where |analytic| > 0.02 res: "
+              f"{flips}, inside cells {int((data < 0).sum())}", flush=True)
+        if sdf.dims != (100, 100, 100) or err > 0.02 * res or flips:
+            fail("the torus SDF disagrees with the analytic SDF")
+
+        # b. K3 against its plain version on 256 point blocks
+        pts_b, tri_data, sup_data, d2 = rec["k3"]
+        n_blocks = pts_b.shape[0] // k3.BLOCK_POINTS
+        block_min = d2.reshape(n_blocks, -1).amin(dim=1)
+        near = torch.argsort(block_min)[:128]
+        rest = torch.ones(n_blocks, dtype=torch.bool, device=dev)
+        rest[near] = False
+        rest_idx = torch.nonzero(rest)[:, 0]
+        spread = rest_idx[torch.linspace(0, len(rest_idx) - 1, 128,
+                                         device=dev).long()]
+        blocks = torch.cat([near, spread])
+        sub = (blocks[:, None] * k3.BLOCK_POINTS
+               + torch.arange(k3.BLOCK_POINTS, device=dev)).reshape(-1)
+        pts_sub = pts_b[sub].contiguous()
+        want = plain3(pts_sub, tri_data, sup_data)
+        torch.cuda.synchronize()
+        ok, k3_err = close_distances(d2[sub].sqrt(), want.sqrt())
+        n_real = int((tri_data[:, 0].abs() < k3._FAR / 2).sum())
+        print(f"K3 inputs: P={pts_b.shape[0]} grid points ({n_blocks} "
+              f"blocks), {n_real} triangles in {sup_data.shape[0]} "
+              f"supertiles; vs plain on 256 blocks (128 nearest the "
+              f"surface, 128 spread): max |kernel - plain| = {k3_err:.3e} m "
+              f"(rtol 1e-4, atol 1e-7)", flush=True)
+        if not ok:
+            fail("K3 disagrees with its plain version")
+
+        # c. the whole route at dim 48 against its plain route
+        got48 = vox.mesh_to_sdf(mesh, dim=48, padding=5, device=dev)
+        plain48 = with_plain_k3(
+            lambda: vox.mesh_to_sdf(mesh, dim=48, padding=5, device=dev))
+        signs = bool(torch.equal(torch.signbit(got48.data),
+                                 torch.signbit(plain48.data)))
+        ok, e48 = close_distances(got48.data, plain48.data)
+        print(f"mesh_to_sdf dim=48 vs its plain route: signs equal {signs}, "
+              f"max |err| {e48:.3e} m", flush=True)
+        if not (signs and ok):
+            fail("mesh_to_sdf disagrees with its plain route at dim 48")
+
+        # d. the other entry points
+        lv = Mesh3D(*box_mesh([0, 0, 0], [2, 1, 1])).merge(
+            Mesh3D(*box_mesh([0, 0, 1], [1, 1, 2])))
+        zero_counts()
+        pieces = approximate_convex_decomposition(lv)
+        n_acd = read_counts()["point_triangle"]
+        plain_pieces = with_plain_k3(
+            lambda: approximate_convex_decomposition(lv))
+        same = len(pieces) == len(plain_pieces) and all(
+            a.vertices.shape == b.vertices.shape
+            and np.allclose(a.vertices, b.vertices, atol=1e-6)
+            for a, b in zip(pieces, plain_pieces))
+        print(f"approximate_convex_decomposition(L): {len(pieces)} pieces, "
+              f"K3 launches {n_acd}, same as the plain route {same}",
+              flush=True)
+        if n_acd != 1 or not same or len(pieces) < 2:
+            fail("convex decomposition: K3 not launched once, or pieces "
+                 "differ from the plain route")
+        src = os.path.join(tmp, "cube.obj")
+        write_obj(src, *box_mesh([0, 0, 0], [0.08, 0.08, 0.08]))
+        config = {"obj_target_scale": 0.1, "obj_rescaling_type": "max"}
+        zero_counts()
+        _, psdf, poses = MeshProcessor(
+            src, cache_dir=os.path.join(tmp, "c1")).generate_graspable(config)
+        n_mp = read_counts()["point_triangle"]
+        _, qsdf, qposes = with_plain_k3(lambda: MeshProcessor(
+            src, cache_dir=os.path.join(tmp, "c2")).generate_graspable(
+                config))
+        ok, emp = close_distances(psdf.data, qsdf.data)
+        same = (ok and torch.equal(torch.signbit(psdf.data),
+                                   torch.signbit(qsdf.data))
+                and len(poses) == len(qposes) == 6 and all(
+                    a["p"] == b["p"] and np.array_equal(a["r"], b["r"])
+                    for a, b in zip(poses, qposes)))
+        print(f"MeshProcessor.generate_graspable(cube): sdf {psdf.dims}, "
+              f"{len(poses)} stable poses, K3 launches {n_mp}, same as the "
+              f"plain route {same} (max |sdf err| {emp:.3e} m)", flush=True)
+        if n_mp != 1 or not same:
+            fail("MeshProcessor: K3 not launched once, or results differ "
+                 "from the plain route")
+
+        # e. timings
+        ms = cuda_ms(torch, lambda: launch3(pts_b, tri_data, sup_data),
+                     iters=5, warm=1)
+        plain_ms = cuda_ms(torch, lambda: plain3(pts_sub, tri_data,
+                                                 sup_data), iters=2, warm=1)
+        cols, z0, pres, tri_v, nz = rec["parity"]
+        parity_ms = cuda_ms(torch, lambda: parity(cols, z0, pres, tri_v,
+                                                  nz=nz), iters=5, warm=1)
+        n_m2s = 3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_m2s):
+            warm = vox.mesh_to_sdf(mesh, dim=100, padding=5, device=dev)
+        torch.cuda.synchronize()
+        m2s_ms = (time.perf_counter() - t0) / n_m2s * 1e3
+        tri_v_np = tri_v.cpu().numpy()
+        host = {}
+        t0 = time.perf_counter()
+        k3.pack_triangles(tri_v_np)
+        host["pack_triangles"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        _, unblock = k3.blocked_grid(100, 100, 100, warm.origin.cpu().numpy(),
+                                     float(warm.resolution))
+        unblock(d2).contiguous()
+        torch.cuda.synchronize()
+        host["blocked_grid + unblock"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        write_sdf(os.path.join(tmp, "timed.sdf"), warm)
+        host["write_sdf (1M values)"] = (time.perf_counter() - t0) * 1e3
+
+    # K3's bound: the supertiles each block needs under the final output
+    # (lower bound below sqrt(max d^2 of the block), plus the nearest one),
+    # times 128 points x the real triangles of each, times the ops per pair
+    pts3 = pts_b.reshape(n_blocks, -1, 3)
+    lo, hi = pts3.amin(dim=1), pts3.amax(dim=1)
+    ctr, bhd = 0.5 * (lo + hi), 0.5 * torch.linalg.norm(hi - lo, dim=1)
+    db = (torch.linalg.norm(sup_data[None, :, :3] - ctr[:, None], dim=2)
+          - sup_data[None, :, 3] - bhd[:, None])
+    need = db < d2.reshape(n_blocks, -1).amax(dim=1).sqrt()[:, None]
+    need[torch.arange(n_blocks, device=dev), db.argmin(dim=1)] = True
+    n_sup = sup_data.shape[0]
+    real = torch.clamp(n_real - k3.SUPER * torch.arange(n_sup, device=dev),
+                       0, k3.SUPER).double()
+    pairs = float(k3.BLOCK_POINTS * (need.double() @ real).sum())
+    ops = pairs * K3_OPS_PER_PAIR
+    nbytes = (pts_b.numel() + tri_data.numel() + sup_data.numel()
+              + d2.numel()) * 4
+    bound = max(ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    by = "operations" if ops / PEAK_FP32_FLOPS > nbytes / PEAK_BYTES \
+        else "bytes"
+    per_block = float(need.sum(dim=1).double().mean())
+    print(f"timings on {card}:", flush=True)
+    print(f"  K3 alone, full size (P={pts_b.shape[0]}, {n_real} triangles): "
+          f"{ms:.4f} ms per launch ({card})")
+    print(f"  K3 plain version on the 256-block subset (32,768 points x "
+          f"{n_real} triangles): {plain_ms:.3f} ms ({card})")
+    print(f"  K3 bound {bound:.4f} ms ({by}; {per_block:.2f} of {n_sup} "
+          f"supertiles per block needed, {pairs:.4e} point-triangle pairs "
+          f"against {pts_b.shape[0] * n_real:.4e} unpruned, x "
+          f"{K3_OPS_PER_PAIR} ops = {ops:.4e} ops; {nbytes} bytes) ({card})")
+    print(f"  _inside_parity, full size (10,000 columns x 100 z): "
+          f"{parity_ms:.3f} ms ({card})")
+    print(f"  mesh_to_sdf, full size: {m2s_ms:.2f} ms warm per call (host "
+          f"clock, {n_m2s} calls) ({card})")
+    for name, t in host.items():
+        print(f"  host {name}: {t:.2f} ms ({card})")
+    print(flush=True)
+    return {"name": "point_triangle", "route": "cuda",
+            "source": "pointnetgpd_tpu_torch/csrc/point_triangle.cu",
+            "replaces": "pointnetgpd_tpu/ops/point_triangle_pallas.py:225",
+            "launches": launches["point_triangle"], "max_abs_err": k3_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
 
 
 def main():
@@ -253,15 +557,16 @@ def main():
 
     # 5. main path
     n_frames = 3
-    k1.launches = 0
-    k2.launches = 0
+    zero_counts()
     outs = [det.process_frame(pts, cam, seed=s) for s in range(n_frames)]
-    launches = {"gpg_counts": k1.launches, "pointnet_trunk": k2.launches}
+    launches = read_counts()
     print(f"main path: {n_frames} frames, launches {launches}", flush=True)
     if launches["gpg_counts"] != 3 * n_frames:
         fail("K1 did not launch 3 times per frame")
     if launches["pointnet_trunk"] != 2 * n_frames:
         fail("K2 did not launch twice per frame")
+    if launches["point_triangle"] != 0:
+        fail("K3 launched on the frame path")
     for s, out in enumerate(outs):
         sc_all = np.asarray(out["all_scores"])
         sc_rank = np.asarray(out["scores"])
@@ -385,6 +690,9 @@ def main():
     if "--profile" in sys.argv:
         profile_frames(torch, det, pts, cam, card)
 
+    # 7. the voxelizer path
+    k3_entry = voxelizer_phases(torch, card)
+
     kernels = [
         {"name": "gpg_counts", "route": "cuda",
          "source": "pointnetgpd_tpu_torch/csrc/gpg_counts.cu",
@@ -400,6 +708,7 @@ def main():
          "plain_ms": timing["k2_plain_64x500"], "bound_ms": k2_bound,
          "bound_by": "operations",
          "library_ms": timing["k2_library_64x500"]},
+        k3_entry,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,16 @@
 """PyTorch/CUDA port of ``pointnetgpd_tpu`` for NVIDIA Hopper (H100).
 
 The package mirrors the JAX package's layout (``models/``, ``ops/``,
-``grasping/``, ``inference/``, ``robot/``) so every module's counterpart is
-easy to find. It imports ``torch`` and never ``jax``. The two TPU kernels of
-the online grasp-detection frame are hand-written CUDA C++ for ``sm_90a``
-(``csrc/``), built at first use by ``_build.py``; each has a plain PyTorch
-version beside it that CPU tensors take.
+``grasping/``, ``inference/``, ``robot/``, ``geometry/``, ``pipelines/``,
+``database/``) so every module's counterpart is easy to find. It imports
+``torch`` and never ``jax``. The three TPU kernels (the GPG panel-count scan
+and the PointNet trunk of the online frame, the min point-triangle distance
+of the voxelizer) are hand-written CUDA C++ for ``sm_90a`` (``csrc/``),
+built at first use by ``_build.py``; each has a plain PyTorch version beside
+it that CPU tensors take.
 
-Entry points (``GraspScorer``, ``GraspDetector``, ``gpg_sample_candidates``)
-run on ``device="cuda"`` unless the caller passes ``device="cpu"``.
+Entry points (``GraspScorer``, ``GraspDetector``, ``gpg_sample_candidates``,
+``prepare_object_dir``, ``MeshProcessor``, ``mesh_to_sdf``,
+``approximate_convex_decomposition``) run on ``device="cuda"`` unless the
+caller passes ``device="cpu"``.
 """

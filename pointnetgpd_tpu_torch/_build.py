@@ -32,6 +32,7 @@ COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = {
     "gpg_counts.cu": ["-fmad=false"],
     "pointnet_trunk.cu": [],
+    "point_triangle.cu": [],
 }
 
 P, I = ctypes.c_void_p, ctypes.c_int
@@ -41,6 +42,8 @@ SIGNATURES = {
     "gpg_counts_launch": [P, I, P, P, P, P, I, I, P, P, P, P, I, P, P],
     # x, B, N, C, w1, b1, w2, b2, w3, b3, out, stream
     "pointnet_trunk_launch": [P, I, I, I, P, P, P, P, P, P, P, P],
+    # pts, n_blocks, tri_data, sup_data, n_sup, out, stream
+    "point_triangle_launch": [P, I, P, P, I, P, P],
 }
 
 _LIB = None

@@ -1,0 +1,141 @@
+"""Mesh -> signed-distance-grid voxelizer: the SDFGen replacement.
+
+Port of ``pointnetgpd_tpu/ops/mesh_to_sdf.py``. The reference shells out to
+the external C++ ``SDFGen`` binary (reference: dex-net/apps/read_file_sdf.py:
+34-41; sdf_dim=100, sdf_padding=5 in test/config.yaml) to produce the .sdf
+grids everything else consumes. Here:
+
+- unsigned distance: exact point-to-triangle distance, minimized over all
+  triangles. On CUDA, the spatially blocked grid goes through kernel K3
+  (``ops/point_triangle.py``, one launch per call); on the CPU, the plain
+  version on the plain grid, as the JAX package splits its TPU and CPU
+  paths;
+- sign: vertical ray parity per (x, y) column (``_inside_parity``), plain
+  torch on both devices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..geometry.mesh import Mesh3D
+from ..geometry.sdf import SdfGrid, make_sdf
+from . import point_triangle as k3
+from .fp import fma
+
+
+def _inside_parity(columns_xy, z0, res, tri_v, *, nz: int, chunk: int = 512):
+    """(C, nz) bool inside-mask by vertical ray parity.
+
+    columns_xy: (C, 2) the (x, y) of each grid column; z0/res: grid z origin
+    and spacing (float32). For each column, intersect the vertical ray with
+    every triangle (2-D barycentric test in the xy plane), bin the crossing
+    z's into cells, and count the crossings at or above each grid z.
+
+    Equal to the JAX package's mask bit for bit:
+    - the barycentric numerators and z_int round as XLA's CPU build
+      contracts them, ``fma(first product, second product rounded)``
+      (``ops/fp.py``);
+    - the JAX package sends every miss to the top bin (nz + 1) of a
+      scatter-add histogram, and its suffix sums count them above every grid
+      z. Here only the hits are binned (``bincount`` on column * (nz + 2) +
+      bin, no per-miss atomics), and the misses are added to the top bin as
+      a count, so ``above`` is the same number.
+    """
+    a, b, c = tri_v[:, 0], tri_v[:, 1], tri_v[:, 2]
+    ax, ay, az = a[:, 0], a[:, 1], a[:, 2]
+    bx, by, bz = b[:, 0], b[:, 1], b[:, 2]
+    cx, cy, cz = c[:, 0], c[:, 1], c[:, 2]
+    denom = fma(by - cy, ax - cx, (cx - bx) * (ay - cy))
+    denom_safe = torch.where(torch.abs(denom) < 1e-18, 1e-18, denom)
+    valid = torch.abs(denom) > 1e-18
+    n_tri = tri_v.shape[0]
+    z0 = torch.as_tensor(z0, dtype=torch.float32, device=tri_v.device)
+    res = torch.as_tensor(res, dtype=torch.float32, device=tri_v.device)
+
+    c_total = columns_xy.shape[0]
+    out = torch.empty((c_total, nz), dtype=torch.bool, device=tri_v.device)
+    for c0 in range(0, c_total, chunk):
+        q = columns_xy[c0:c0 + chunk]
+        n = q.shape[0]
+        dx, dy = q[:, 0, None] - cx, q[:, 1, None] - cy        # (n, F)
+        w1 = fma(by - cy, dx, (cx - bx) * dy) / denom_safe
+        w2 = fma(cy - ay, dx, (ax - cx) * dy) / denom_safe
+        w3 = 1.0 - w1 - w2
+        hit = (w1 >= 0) & (w2 >= 0) & (w3 >= 0) & valid
+        col, tri = hit.nonzero(as_tuple=True)
+        z_int = fma(w3[col, tri], cz[tri],
+                    fma(w1[col, tri], az[tri], w2[col, tri] * bz[tri]))
+        kbin = torch.clamp(torch.floor((z_int - z0) / res).to(torch.int64) + 1,
+                           0, nz + 1)
+        hist = torch.bincount(col * (nz + 2) + kbin,
+                              minlength=n * (nz + 2)).reshape(n, nz + 2)
+        hist[:, nz + 1] += n_tri - hit.sum(dim=1)
+        suffix = torch.flip(torch.cumsum(torch.flip(hist, [1]), dim=1), [1])
+        out[c0:c0 + n] = (suffix[:, 1:nz + 1] % 2) == 1
+    return out
+
+
+def mesh_to_sdf(mesh: Mesh3D, dim: int = 100, padding: int = 5,
+                jitter: float = 1e-4, max_triangles: int = 60000,
+                device="cuda") -> SdfGrid:
+    """Voxelize a watertight mesh into a (dim^3) SDF grid on ``device`` with
+    ``padding`` empty cells on each side (SDFGen's dim/padding semantics,
+    read_file_sdf.py:34-41 + test/config.yaml).
+
+    ``jitter`` nudges the grid off exact vertex/edge alignments so the ray
+    parity is robust (SDFGen uses exact predicates instead).
+
+    Precondition (shared with SDFGen): the mesh must not be SELF-INTERSECTING
+    — in an overlapping union a ray entering both solids counts two crossings
+    and parity marks the overlap region outside.
+    """
+    if len(mesh.triangles) > max_triangles:
+        # the distance pass is O(grid x triangles): decimate huge meshes
+        # (e.g. YCB google_512k) to a voxelizer-friendly size
+        mesh = mesh.decimate(max_triangles)
+    verts = np.asarray(mesh.vertices, np.float32)
+    tris = np.asarray(mesh.triangles, np.int32)
+    if len(verts) == 0 or len(tris) == 0:
+        raise ValueError("mesh_to_sdf requires a mesh with vertices and "
+                         f"triangles (got {len(verts)} verts, {len(tris)} tris)")
+    lo = verts.min(axis=0)
+    hi = verts.max(axis=0)
+    span = float((hi - lo).max())
+    res = span / (dim - 1 - 2 * padding)
+    # asymmetric per-axis jitter: a symmetric shift keeps columns on diagonal
+    # shared edges (e.g. a cube face's triangulation diagonal x == y), where
+    # the parity ray double-counts; incommensurate offsets avoid all edges
+    origin = lo - padding * res + jitter * res * np.array([1.0, 2.6180339887,
+                                                           4.2360679775])
+
+    dev = torch.device(device)
+    idx = np.arange(dim, dtype=np.float32)
+    tri_v_np = verts[tris]                               # (F, 3, 3)
+    tri_v = torch.from_numpy(tri_v_np).to(dev)
+
+    if dev.type == "cuda":
+        pts_blocked, unblock = k3.blocked_grid(dim, dim, dim, origin, res)
+        tri_data, sup_data = k3.pack_triangles(tri_v_np)
+        d2 = k3.min_point_triangle_dist2(
+            torch.from_numpy(pts_blocked).to(dev),
+            torch.from_numpy(tri_data).to(dev),
+            torch.from_numpy(sup_data).to(dev))
+        dist = torch.sqrt(torch.clamp(unblock(d2), min=0.0))
+    else:
+        ii, jj, kk = np.meshgrid(idx, idx, idx, indexing="ij")
+        pts = origin + res * np.stack([ii, jj, kk], axis=-1)
+        pts_flat = torch.from_numpy(pts.reshape(-1, 3).astype(np.float32))
+        dist = k3.unsigned_distance_torch(pts_flat.to(dev), tri_v).reshape(
+            dim, dim, dim)
+
+    cols = origin[:2] + res * np.stack(
+        np.meshgrid(idx, idx, indexing="ij"), axis=-1).reshape(-1, 2)
+    inside = _inside_parity(
+        torch.from_numpy(cols.astype(np.float32)).to(dev),
+        np.float32(origin[2]), np.float32(res), tri_v,
+        nz=dim).reshape(dim, dim, dim)
+
+    data = torch.where(inside, -dist, dist)
+    return make_sdf(data, origin, res, device=dev)

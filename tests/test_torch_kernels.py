@@ -1,10 +1,13 @@
-"""The port's two kernel modules against the JAX package.
+"""The port's kernel modules against the JAX package.
 
 K1, the GPG panel-count scan (pointnetgpd_tpu_torch/ops/gpg_counts.py): the
 plain version must equal ``gpg_scan_counts_jnp`` exactly, both scan axes.
 K2, the fused PointNet trunk (pointnetgpd_tpu_torch/ops/pointnet_trunk.py):
 the plain version and the BN folding must match ``trunk_reference`` and the
 Pallas ``fused_trunk`` (interpret mode) to atol 1e-4.
+K3, the min point-triangle distance (pointnetgpd_tpu_torch/ops/
+point_triangle.py): its plain version is held against the JAX package in
+tests/test_torch_voxelizer.py; here only its kernel, on a card.
 
 The hand-written CUDA kernels themselves run only on a GPU: the tests marked
 ``cuda`` compare them with their plain versions there and skip elsewhere.
@@ -22,6 +25,7 @@ from pointnetgpd_tpu.ops import pointnet_trunk_pallas as jk2
 from pointnetgpd_tpu_torch.models.convert import state_dict_from_jax
 from pointnetgpd_tpu_torch.models.pointnet import PointNetfeat
 from pointnetgpd_tpu_torch.ops import gpg_counts as k1
+from pointnetgpd_tpu_torch.ops import point_triangle as k3
 from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
 
 
@@ -235,3 +239,24 @@ def test_k2_kernel_matches_plain_on_card(cuda_device, b, n):
         want = k2.trunk_reference(x, folded)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                atol=ATOL, rtol=ATOL)
+
+
+# --------------------------------------------------------------------- K3
+
+@pytest.mark.cuda
+def test_k3_kernel_matches_plain_on_card(cuda_device):
+    """Random triangles around a blocked 24^3 grid: the pruned kernel
+    against the brute-force plain version, distances to rtol 1e-4, atol
+    1e-7 (the two Ericson variants agree to rounding)."""
+    rs = np.random.RandomState(6)
+    tv = ((rs.rand(1000, 3, 3) - 0.5) * 0.1).astype(np.float32)
+    pts, _ = k3.blocked_grid(24, 24, 24, [-0.08] * 3, 0.007)
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (pts, *k3.pack_triangles(tv))]
+    n0 = k3.launches
+    got = k3.min_point_triangle_dist2(*args)
+    assert k3.launches == n0 + 1
+    want = k3.min_point_triangle_dist2_torch(*args)
+    np.testing.assert_allclose(got.sqrt().cpu().numpy(),
+                               want.sqrt().cpu().numpy(), rtol=1e-4,
+                               atol=1e-7)
