@@ -6,12 +6,17 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the build time;
+   from the built library's SASS (cuobjdump; the PTX where the toolkit has
+   no cuobjdump), show that K2 issues wgmma (HGMMA) and K1 no tensor-core
+   instruction;
 3. K1 (GPG panel-count scan) against its plain version on the three scans of
    one frame of the 18k-point synthetic tabletop (the benchmark scene of
    bench.py, rebuilt here), bucketed at cloud_pad_to=4096: exact equality
-   on the active frames;
-4. K2 (fused PointNet trunk) against its plain version at the detector's
-   (B, N) = (64, 500) and the scorer benchmark's (512, 750), to
+   on the active frames; then on that frame's cloud and first 256 frames
+   with 32 unsorted and 1 shift, all frames active, and an empty cloud;
+4. K2 (fused PointNet trunk, tensor cores in 3xTF32) against its plain
+   version at the detector's (B, N) = (64, 500), the scorer benchmark's
+   (512, 750) and the edges (1, 300), (4, 1), (3, 129), to
    |err| <= 1e-4 * (1 + |ref|); the golden checkpoint's frozen outputs are
    reproduced on the card through K2 to 1e-4;
 5. the main path: GraspDetector.process_frame on a few frames with the
@@ -23,12 +28,23 @@ Phases, in order; any failure exits non-zero:
    versions (same seed, so the same draws): candidates, counts and
    predictions must be equal and scores within 1e-4;
 6. timings with CUDA events (warm, many launches) of each kernel alone (K1:
-   the bare C launch on prepared arguments; its wrapper is timed apart), its
-   plain version and, for K2, one PyTorch yardstick (three torch.matmul +
-   max, TF32 off) that the port never calls; warm ms per frame. With
-   ``--profile``, also a torch.profiler breakdown of a few warm frames.
+   the bare C launch on prepared arguments, per scan; its wrapper is timed
+   apart; an empty kernel on the same stream is the launch-latency floor),
+   its plain version and, for K2, one PyTorch yardstick (three torch.matmul
+   + max, TF32 off) that the port never calls; each kernel's bound and its
+   share of it; warm ms per frame. With ``--profile``, also a
+   torch.profiler breakdown of a few warm frames;
+7. the voxelizer path (``voxelizer_phases``).
 
-TF32 is switched off for matmuls and cuDNN: the port keeps fp32 throughout.
+Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
+slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
+the recorded scans) at 34 operations each, or the bytes of the real cloud,
+the active frames and the counts, whichever takes longer. K2: three TF32
+passes of layers 2-3 at 495 TFLOP/s plus layer 1 at the fp32 67 TFLOP/s
+(printed beside the all-fp32 CUDA-core bound).
+
+TF32 is switched off for torch's matmuls and cuDNN: only K2's own 3xTF32
+products use the tensor cores.
 The line before the last is a JSON object with one entry per kernel; the
 last line is the contract line {"ok": true, "device": {...}}.
 """
@@ -47,7 +63,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # published peaks of one H100 SXM (dense, no sparsity; NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
+K1_OPS_PER_PAIR = 34       # 3 coordinate chains (18 flops) + 16 compares
 K2_TOL = 1e-4
 # K3's fp32 operations per (point, triangle) pair, counted from the loop body
 # of csrc/point_triangle.cu as written (a fused multiply-add counts as the
@@ -150,6 +168,53 @@ def profile_frames(torch, det, pts, cam, card, n=3):
     for key, (t, c) in top[:15]:
         print(f"  device {t / n / 1e3:8.3f} ms/frame x{c // n:4d}  "
               f"{key[:90]}")
+
+
+def sass_check(lib_path):
+    """Count tensor-core instructions per kernel in the built library:
+    wgmma (SASS HGMMA) must appear in K2's kernel and no HMMA/HGMMA in K1's.
+    Reads cuobjdump's SASS, or the PTX of the sources where the toolkit has
+    no cuobjdump."""
+    import shutil
+    import tempfile
+
+    from pointnetgpd_tpu_torch import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(tool):
+        text = subprocess.run([tool, "-sass", str(lib_path)],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        sections, kind = text.split("Function : "), "SASS"
+        pat_k2, pat_k1 = ("HGMMA",), ("HGMMA", "HMMA")
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            parts = []
+            for name in ("pointnet_trunk.cu", "gpg_counts.cu"):
+                out = os.path.join(tmp, name + ".ptx")
+                subprocess.run([_build._nvcc(), "-arch=sm_90a", "-std=c++17",
+                                *_build.SOURCES[name], "-ptx",
+                                str(_build.CSRC / name), "-o", out],
+                               check=True, timeout=300)
+                parts += open(out).read().split(".entry ")
+        sections, kind = parts, "PTX"
+        pat_k2, pat_k1 = ("wgmma.mma_async",), ("wgmma.mma_async", "mma.sync")
+
+    def count(fn, pats):
+        body = "".join(sec for sec in sections
+                       if sec.split("\n", 1)[0].find(fn) >= 0)
+        return sum(body.count(p) for p in pats)
+
+    n_k2 = count("pointnet_trunk_kernel", pat_k2)
+    n_k1 = count("gpg_counts_kernel", pat_k1)
+    print(f"{kind} of the built kernels: pointnet_trunk_kernel "
+          f"{n_k2} x {pat_k2[0]}; gpg_counts_kernel {n_k1} tensor-core "
+          f"instructions; K1 built with {_build.SOURCES['gpg_counts.cu']}",
+          flush=True)
+    if n_k2 == 0:
+        fail("K2 does not reach the tensor cores through wgmma")
+    if n_k1 != 0:
+        fail("K1 uses the tensor cores")
 
 
 def _kernel_modules():
@@ -468,8 +533,10 @@ def main():
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.build_seconds} s)", flush=True)
     for line in _build.ptxas_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if "registers" in line or "spill" in line or line.startswith("==") \
+                or "wgmma" in line:
             print(f"  ptxas {line.strip()}")
+    sass_check(_build.build())
 
     from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
     from pointnetgpd_tpu_torch.ops import gpg_counts as k1
@@ -492,9 +559,8 @@ def main():
         rec["k1"].append((ctx, fx.clone(), sc.clone(), is_y))
         return launch1(ctx, fx, sc, is_y)
 
-    def rec2(x, folded):
-        rec["k2"].append((x.clone(), tuple(t.detach().clone()
-                                           for t in folded)))
+    def rec2(x, folded):    # the model's cached FoldedTrunk, kept as is
+        rec["k2"].append((x.clone(), folded))
         return launch2(x, folded)
 
     k1.GpgScanContext._launch, k2._launch = rec1, rec2
@@ -528,13 +594,42 @@ def main():
               flush=True)
         if err != 0:
             fail("K1 disagrees with its plain version on active frames")
+    # edges, on this frame's cloud and its first 256 frames
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sub = slice(0, min(256, ctx.f))
+    n_sub = sub.stop
+    fx0 = rec["k1"][0][1][sub]
+    cases = [("32 unsorted shifts", ctx.points, act[sub], 32),
+             ("1 shift", ctx.points, act[sub], 1),
+             ("all frames active", ctx.points, None, 21),
+             ("empty cloud", ctx.points[:0], act[sub], 21)]
+    for label, cloud, active, ns in cases:
+        cctx = k1.GpgScanContext(cloud, ctx.seeds[sub], ctx.rot_rows[sub],
+                                 ctx.boxes, active=active)
+        sc = (torch.rand((n_sub, ns), generator=gen, device=dev) - 0.5) * 0.1
+        keep = cctx.active
+        for is_y in (True, False):
+            got = launch1(cctx, fx0, sc, is_y)
+            want = k1.gpg_scan_counts_torch(cctx.points, cctx.seeds,
+                                            cctx.rot_rows, fx0, sc,
+                                            cctx.boxes, scan_is_y=is_y)
+            torch.cuda.synchronize()
+            if not (torch.equal(got[keep], want[keep])
+                    and not got[~keep].any()):
+                fail(f"K1 disagrees with its plain version: {label}, "
+                     f"scan_is_y={is_y}")
+        print(f"K1 {label} ({n_sub} frames, {int(keep.sum())} active, "
+              f"P={cloud.shape[0]}): equal to the plain version on both "
+              f"scan axes", flush=True)
 
     # 4. K2 vs plain
     torch.manual_seed(0)
     x_det, folded = rec["k2"][1]               # PointNetfeat trunk, (64, 500)
     x_big = torch.randn(512, 750, 3, device=dev) * 0.02
     k2_err = {}
-    for name, x in (("64x500", x_det), ("512x750", x_big)):
+    edges = [(f"{b}x{n}", torch.randn(b, n, 3, device=dev) * 0.02)
+             for b, n in ((1, 300), (4, 1), (3, 129))]
+    for name, x in (("64x500", x_det), ("512x750", x_big), *edges):
         got = launch2(x, folded)
         want = k2.trunk_reference(x, folded)
         torch.cuda.synchronize()
@@ -625,18 +720,29 @@ def main():
             k1.gpg_scan_counts_torch(ctx.points, ctx.seeds, ctx.rot_rows, fx,
                                      sc, ctx.boxes, scan_is_y=is_y)),
             iters=2, warm=1)
+    stream = torch.cuda.current_stream().cuda_stream
+    timing["empty"] = cuda_ms(torch, lambda: _build.check(
+        lib.empty_launch(stream), "empty_launch"), iters=200)
     k1_ms = sum(timing[f"k1_{i}"] for i in range(3))
     k1_wrap = sum(timing[f"k1_wrap_{i}"] for i in range(3))
     k1_plain = sum(timing[f"k1_plain_{i}"] for i in range(3))
-    # K1 bound: per scan, every (active frame, real cloud point) pair needs
-    # three 3-term coordinate chains (18 flops) and the 16 slab compares of
-    # the 4 boxes; bytes = real cloud + frames + counts. The sentinel tail
-    # of the bucket is skipped by the kernel and needs no work.
+    # K1 bound over the work these inputs need: only (active frame, real
+    # point) pairs inside both fixed-axis slabs can count, each needing
+    # three coordinate chains and the 16 box compares; bytes = the real
+    # cloud + the active frames + the flags + the counts written
     k1_ops = k1_bytes = 0
-    for _, fx, sc, _ in rec["k1"]:
+    k1_pairs = []
+    real_pts = ctx.points[:p_real]
+    for _, fx, sc, is_y in rec["k1"]:
         ns = sc.shape[1]
-        k1_ops += n_act * p_real * 34
-        k1_bytes += p_real * 12 + ctx.f * (13 + ns) * 4 + ctx.f * ns * 16
+        pairs = sum(int(k1.slab_pair_mask(
+            real_pts, ctx.seeds[act][c0:c0 + 64],
+            ctx.rot_rows[act][c0:c0 + 64], fx[act][c0:c0 + 64], ctx.boxes,
+            scan_is_y=is_y).sum()) for c0 in range(0, n_act, 64))
+        k1_pairs.append(pairs)
+        k1_ops += pairs * K1_OPS_PER_PAIR
+        k1_bytes += (p_real * 12 + n_act * (13 + ns) * 4 + ctx.f
+                     + ctx.f * ns * 16)
     k1_bound = max(k1_ops / PEAK_FP32_FLOPS, k1_bytes / PEAK_BYTES) * 1e3
     k1_by = "operations" if k1_ops / PEAK_FP32_FLOPS > k1_bytes / PEAK_BYTES \
         else "bytes"
@@ -655,11 +761,19 @@ def main():
             torch, lambda: k2.trunk_reference(x, folded), iters=20)
         timing[f"k2_library_{name}"] = cuda_ms(torch, lambda: library(x),
                                                iters=20)
-    b, n = x_det.shape[:2]
-    k2_ops = 2.0 * b * n * (3 * 64 + 64 * 128 + 128 * 1024)
-    k2_bytes = (b * n * 3 + 3 * 64 + 64 + 64 * 128 + 128 + 128 * 1024 + 1024
-                + b * 1024) * 4
-    k2_bound = max(k2_ops / PEAK_FP32_FLOPS, k2_bytes / PEAK_BYTES) * 1e3
+    def k2_bounds(b, n):
+        """(3xTF32 tensor-core bound, all-fp32 CUDA-core bound) in ms: the
+        larger of operations and bytes (inputs and weights read once, the
+        (B, 1024) output written once)."""
+        l1 = 2.0 * b * n * 3 * 64
+        l23 = 2.0 * b * n * (64 * 128 + 128 * 1024)
+        nbytes = (b * n * 3 + 3 * 64 + 64 + 64 * 128 + 128 + 128 * 1024
+                  + 1024 + b * 1024) * 4
+        mem = nbytes / PEAK_BYTES
+        return (max(3 * l23 / PEAK_TF32_FLOPS + l1 / PEAK_FP32_FLOPS, mem)
+                * 1e3, max((l1 + l23) / PEAK_FP32_FLOPS, mem) * 1e3)
+
+    k2_bound = k2_bounds(*x_det.shape[:2])[0]
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -670,20 +784,27 @@ def main():
     frame_ms = (time.perf_counter() - t0) / n_timed * 1e3
 
     print(f"timings on {card}:", flush=True)
+    print(f"  empty kernel on the same stream (launch-latency floor): "
+          f"{timing['empty']:.4f} ms ({card})")
     for i, (_, _, sc, is_y) in enumerate(rec["k1"]):
-        print(f"  K1 scan ns={sc.shape[1]}: kernel {timing[f'k1_{i}']:.4f} ms,"
-              f" with wrapper {timing[f'k1_wrap_{i}']:.4f} ms, plain "
-              f"{timing[f'k1_plain_{i}']:.3f} ms ({card})")
+        print(f"  K1 scan ns={sc.shape[1]} scan_is_y={is_y}: kernel "
+              f"{timing[f'k1_{i}']:.4f} ms, with wrapper "
+              f"{timing[f'k1_wrap_{i}']:.4f} ms, plain "
+              f"{timing[f'k1_plain_{i}']:.3f} ms; {n_act} active frames, "
+              f"{k1_pairs[i]} (frame, point) pairs inside both fixed slabs "
+              f"of {n_act * p_real} ({card})")
     print(f"  K1 per frame (3 scans): kernel {k1_ms:.4f} ms, wrapper "
           f"overhead {k1_wrap - k1_ms:.4f} ms, plain {k1_plain:.3f} ms, "
-          f"bound {k1_bound:.5f} ms ({k1_by}; {k1_ops:.3e} ops, {k1_bytes} "
-          f"bytes) ({card})")
-    for name in ("64x500", "512x750"):
+          f"bound {k1_bound:.6f} ms ({k1_by}; {k1_ops:.3e} ops, {k1_bytes} "
+          f"bytes), {100 * k1_bound / k1_ms:.2f}% of the bound ({card})")
+    for name, x in (("64x500", x_det), ("512x750", x_big)):
+        tc, fp32 = k2_bounds(*x.shape[:2])
         print(f"  K2 {name}: kernel {timing[f'k2_{name}']:.4f} ms, plain "
               f"{timing[f'k2_plain_{name}']:.4f} ms, library (3 matmul + "
-              f"max) {timing[f'k2_library_{name}']:.4f} ms ({card})")
-    print(f"  K2 64x500 bound {k2_bound:.5f} ms (operations; "
-          f"{k2_ops:.3e} flops) ({card})")
+              f"max) {timing[f'k2_library_{name}']:.4f} ms; bound "
+              f"{tc:.5f} ms (3xTF32 tensor cores, operations), "
+              f"{100 * tc / timing[f'k2_{name}']:.1f}% of it; all-fp32 "
+              f"CUDA-core bound {fp32:.5f} ms ({card})")
     print(f"  frame: {frame_ms:.2f} ms warm per process_frame "
           f"(host clock, {n_timed} frames) ({card})", flush=True)
 

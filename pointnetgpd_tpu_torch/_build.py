@@ -37,11 +37,14 @@ SOURCES = {
 
 P, I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    # pts, P, seeds, rot, fixed, scan, F, ns, active, spheres, tile_box,
-    # boxes(host), scan_is_y, out, stream
-    "gpg_counts_launch": [P, I, P, P, P, P, I, I, P, P, P, P, I, P, P],
-    # x, B, N, C, w1, b1, w2, b2, w3, b3, out, stream
-    "pointnet_trunk_launch": [P, I, I, I, P, P, P, P, P, P, P, P],
+    # pts, P, tile_box, T, seeds, rot, fixed, scan, scan_stride, F, ns,
+    # active, boxes(host), scan_is_y, out, stream
+    "gpg_counts_launch": [P, I, P, I, P, P, P, P, I, I, I, P, P, I, P, P],
+    # stream
+    "empty_launch": [P],
+    # x, B, N, C, w1, b1, w2 big, w2 small, b2, w3 big, w3 small, b3, out,
+    # stream
+    "pointnet_trunk_launch": [P, I, I, I, P, P, P, P, P, P, P, P, P, P],
     # pts, n_blocks, tri_data, sup_data, n_sup, out, stream
     "point_triangle_launch": [P, I, P, P, I, P, P],
 }

@@ -10,7 +10,9 @@ Both shared-MLP trunks run through ``ops.pointnet_trunk.fused_trunk`` (the
 hand-written CUDA kernel on the card, its plain version on the CPU): the
 STN3d trunk as ``relu(max(.))`` (ReLU and max commute) and the PointNetfeat
 trunk on ``x @ trans``. Each trunk folds its BatchNorm into the weights once
-and reuses the folded tuple until one of its parameters or buffers changes.
+and reuses the folded tuple until one of its parameters or buffers changes;
+the tuple carries beside it the kernel's 3xTF32 split of the weights
+(``FoldedTrunk.tensor_core``), made in the same fold.
 The FC heads and the 3x3 ``bmm`` stay plain torch.
 ``DualPointNetCls`` and ``PointNetDenseCls`` come in a later slice.
 """
@@ -41,9 +43,10 @@ class _Trunk(_EvalOnly):
     _folded_key = None
 
     def folded_trunk(self):
-        """The BN-folded trunk weights, recomputed only when a tensor of
-        the trunk was moved, reloaded or edited in place since the last
-        fold (keyed on each tensor's storage and in-place version)."""
+        """The BN-folded trunk weights and their tensor-core split (a
+        ``FoldedTrunk``), recomputed only when a tensor of the trunk was
+        moved, reloaded or edited in place since the last fold (keyed on
+        each tensor's storage and in-place version)."""
         mods = [getattr(self, f"{kind}{i}") for i in (1, 2, 3)
                 for kind in ("conv", "bn")]
         key = tuple((t.data_ptr(), t._version) for m in mods

@@ -1,10 +1,14 @@
 """The port's kernel modules against the JAX package.
 
 K1, the GPG panel-count scan (pointnetgpd_tpu_torch/ops/gpg_counts.py): the
-plain version must equal ``gpg_scan_counts_jnp`` exactly, both scan axes.
+plain version must equal ``gpg_scan_counts_jnp`` exactly, both scan axes;
+so must the kernel's counting scheme (sorted-shift runs and a prefix sum,
+``gpg_scan_counts_ranges``) for any shift order, and its tile test
+(``tile_slab_mask``) may never drop a point that the oracle counts.
 K2, the fused PointNet trunk (pointnetgpd_tpu_torch/ops/pointnet_trunk.py):
 the plain version and the BN folding must match ``trunk_reference`` and the
-Pallas ``fused_trunk`` (interpret mode) to atol 1e-4.
+Pallas ``fused_trunk`` (interpret mode) to atol 1e-4, and so must the
+kernel's 3xTF32 arithmetic (``trunk_3xtf32``), to 1e-4 * (1 + |ref|).
 K3, the min point-triangle distance (pointnetgpd_tpu_torch/ops/
 point_triangle.py): its plain version is held against the JAX package in
 tests/test_torch_voxelizer.py; here only its kernel, on a card.
@@ -22,8 +26,13 @@ import torch
 from pointnetgpd_tpu.models.pointnet import init_pointnet_feat
 from pointnetgpd_tpu.ops import gpg_counts_pallas as jk1
 from pointnetgpd_tpu.ops import pointnet_trunk_pallas as jk2
-from pointnetgpd_tpu_torch.models.convert import state_dict_from_jax
-from pointnetgpd_tpu_torch.models.pointnet import PointNetfeat
+from pointnetgpd_tpu_torch.models import pointnet as port_pointnet
+from pointnetgpd_tpu_torch.models.convert import (
+    load_reference_checkpoint,
+    pointnet_cls_from_state_dict,
+    state_dict_from_jax,
+)
+from pointnetgpd_tpu_torch.models.pointnet import PointNetfeat, pointnet_cls_infer
 from pointnetgpd_tpu_torch.ops import gpg_counts as k1
 from pointnetgpd_tpu_torch.ops import point_triangle as k3
 from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
@@ -72,6 +81,23 @@ def _t(*arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
 
 
+def _box_bound_case():
+    """24 frames at the origin; 4,000 points whose frame-0 x coordinates sit
+    within a few ulps of the box bound x = 0.02."""
+    rs = np.random.RandomState(11)
+    f, p = 24, 4000
+    seeds = np.zeros((f, 3), np.float32)
+    q = rs.randn(f, 3, 3).astype(np.float32)
+    u, _, vt = np.linalg.svd(q)
+    rots = np.ascontiguousarray((u @ vt).astype(np.float32))
+    local = rs.rand(p, 3).astype(np.float32) * [0.0, 0.08, 0.02] \
+        + [0.02, -0.04, -0.01]
+    local[:, 0] += (rs.rand(p).astype(np.float32) - 0.5) * 4e-9
+    pts = (local @ rots[0]).astype(np.float32)
+    return pts, seeds, rots, np.zeros(f, np.float32), np.zeros((f, 3),
+                                                                np.float32)
+
+
 # --------------------------------------------------------------------- K1
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -91,19 +117,7 @@ def test_k1_plain_rounds_like_the_oracle_on_box_bounds():
     """Points placed on the rounding edge of a box bound: only the same
     fused-multiply-add association as the JAX CPU build classifies them the
     same way, so this case catches a plain version that rounds otherwise."""
-    rs = np.random.RandomState(11)
-    f, p = 24, 4000
-    seeds = np.zeros((f, 3), np.float32)
-    q = rs.randn(f, 3, 3).astype(np.float32)
-    u, _, vt = np.linalg.svd(q)
-    rots = np.ascontiguousarray((u @ vt).astype(np.float32))
-    # points whose frame-0 coordinates sit within a few ulps of x = 0.02
-    local = rs.rand(p, 3).astype(np.float32) * [0.0, 0.08, 0.02] \
-        + [0.02, -0.04, -0.01]
-    local[:, 0] += (rs.rand(p).astype(np.float32) - 0.5) * 4e-9
-    pts = (local @ rots[0]).astype(np.float32)
-    fixed = np.zeros(f, np.float32)
-    scan = np.zeros((f, 3), np.float32)
+    pts, seeds, rots, fixed, scan = _box_bound_case()
     for scan_is_y in (True, False):
         want = np.asarray(jk1.gpg_scan_counts_jnp(
             pts, seeds, rots, fixed, scan, BOXES, scan_is_y=scan_is_y))
@@ -146,6 +160,89 @@ def test_k1_sentinel_padding_and_empty_region():
     assert (z.numpy() == 0).all()
 
 
+@pytest.mark.parametrize("scene", ["box_bounds", "random"])
+@pytest.mark.parametrize("scan_is_y", [True, False])
+def test_k1_tile_test_never_drops_a_counted_point(scene, scan_is_y):
+    """For each frame, the oracle on the cloud with every tile that
+    ``tile_slab_mask`` skips replaced by far sentinels counts exactly what
+    it counts on the whole cloud."""
+    if scene == "box_bounds":
+        pts, seeds, rots, fixed, scan = _box_bound_case()
+    else:
+        pts, seeds, rots, fixed, scan = _random_case(8, p=6000, f=24, ns=9)
+    ctx = k1.GpgScanContext(*_t(pts, seeds, rots), BOXES)
+    keep = k1.tile_slab_mask(ctx.tile_box, ctx.seeds, ctx.rot_rows,
+                             torch.from_numpy(fixed), BOXES,
+                             scan_is_y=scan_is_y).numpy()
+    cloud = ctx.points.numpy()
+    tile_of = np.arange(cloud.shape[0]) // k1.TILE_POINTS
+    want = np.asarray(jk1.gpg_scan_counts_jnp(
+        cloud, seeds, rots, fixed, scan, BOXES, scan_is_y=scan_is_y))
+    for f in range(seeds.shape[0]):
+        kept = np.where(keep[f, tile_of][:, None], cloud, np.float32(-1e6))
+        got = np.asarray(jk1.gpg_scan_counts_jnp(
+            kept, seeds[f:f + 1], rots[f:f + 1], fixed[f:f + 1],
+            scan[f:f + 1], BOXES, scan_is_y=scan_is_y))
+        np.testing.assert_array_equal(got[0], want[f], err_msg=f"frame {f}")
+    assert want.sum() > 0
+    if scene == "random":     # the sorted cloud's tiles do get skipped
+        assert keep.mean() < 0.8
+
+
+@pytest.mark.parametrize("ns", [1, 32])
+@pytest.mark.parametrize("order", ["ascending", "unsorted", "tied"])
+@pytest.mark.parametrize("scan_is_y", [True, False])
+def test_k1_range_counts_equal_jnp_oracle(ns, order, scan_is_y):
+    """Runs of sorted shifts plus a prefix sum count exactly what the
+    oracle's shift walk counts, whatever the order of the shifts."""
+    pts, seeds, rots, fixed, scan = _random_case(9, p=2000, f=29, ns=ns)
+    rs = np.random.RandomState(ns)
+    if order == "ascending":
+        scan = np.sort(scan, axis=1)
+    elif order == "tied":                 # a few values, repeated
+        scan = scan[:, rs.randint(0, max(ns // 4, 1), ns)]
+    want = np.asarray(jk1.gpg_scan_counts_jnp(
+        pts, seeds, rots, fixed, scan, BOXES, scan_is_y=scan_is_y))
+    got = k1.gpg_scan_counts_ranges(*_t(pts, seeds, rots, fixed, scan),
+                                    BOXES, scan_is_y=scan_is_y)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want.sum() > 0
+
+
+@pytest.mark.parametrize("scan_is_y", [True, False])
+def test_k1_context_sorts_the_cloud_by_morton_code(scan_is_y):
+    """The context's cloud is the input's real points in Morton order with
+    the sentinel tail last, each tile box holds its tile's real points, and
+    its counts equal the JAX context's (interpret mode) on active frames."""
+    pts, seeds, rots, fixed, scan = _random_case(10, p=2500, f=33, ns=7)
+    padded = np.concatenate([pts, np.full((700, 3), -1e6, np.float32)])
+    active = np.random.RandomState(1).rand(33) < 0.6
+    ctx = k1.GpgScanContext(*_t(padded, seeds, rots), BOXES,
+                            active=torch.from_numpy(active))
+    cloud = ctx.points.numpy()
+    real = cloud[:, 0] > -5e5
+    assert real[:2500].all() and not real[2500:].any()
+    np.testing.assert_array_equal(np.unique(cloud[:2500], axis=0),
+                                  np.unique(pts, axis=0))
+    box = ctx.tile_box.numpy()
+    for t in range(box.shape[0]):
+        tile = cloud[t * k1.TILE_POINTS:(t + 1) * k1.TILE_POINTS]
+        tile = tile[tile[:, 0] > -5e5]
+        if len(tile):
+            np.testing.assert_array_equal(box[t], np.concatenate(
+                [tile.min(0), tile.max(0)]))
+        else:
+            assert (box[t, :3] > box[t, 3:]).all()
+    got = ctx.counts(*_t(fixed, scan), scan_is_y=scan_is_y).numpy()
+    jctx = jk1.GpgScanContext(padded, seeds, rots, BOXES,
+                              active=jnp.asarray(active))
+    want = np.asarray(jctx.counts(fixed, scan, scan_is_y=scan_is_y,
+                                  interpret=True))
+    np.testing.assert_array_equal(got[active], want[active])
+    assert want[active].sum() > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("scan_is_y", [True, False])
 def test_k1_kernel_equals_plain_on_card(cuda_device, scan_is_y):
@@ -161,6 +258,29 @@ def test_k1_kernel_equals_plain_on_card(cuda_device, scan_is_y):
     act = active.numpy()
     np.testing.assert_array_equal(got[act], want.cpu().numpy()[act])
     assert (got[~act] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unsorted", "ns1", "ns32", "all_active",
+                                  "empty_cloud", "broadcast_shifts"])
+def test_k1_kernel_cases_on_card(cuda_device, case):
+    ns = {"ns1": 1, "ns32": 32}.get(case, 21)
+    pts, seeds, rots, fixed, scan = _random_case(12, p=4000, f=200, ns=ns)
+    if case == "empty_cloud":
+        pts = pts[:0]
+    if case == "broadcast_shifts":
+        scan = np.broadcast_to(scan[0], scan.shape)
+    active = np.random.RandomState(2).rand(200) < (
+        1.0 if case == "all_active" else 0.4)
+    dev = [t.to(cuda_device) for t in _t(pts, seeds, rots, fixed, scan)]
+    ctx = k1.GpgScanContext(*dev[:3], BOXES,
+                            active=torch.from_numpy(active).to(cuda_device))
+    for scan_is_y in (True, False):
+        got = ctx.counts(*dev[3:], scan_is_y=scan_is_y).cpu().numpy()
+        want = k1.gpg_scan_counts_torch(*dev, BOXES, scan_is_y=scan_is_y)
+        np.testing.assert_array_equal(got[active],
+                                      want.cpu().numpy()[active])
+        assert (got[~active] == 0).all()
 
 
 # --------------------------------------------------------------------- K2
@@ -213,6 +333,81 @@ def test_k2_plain_matches_jax_reference_and_pallas(b, n):
     np.testing.assert_array_equal(routed, plain)   # CPU tensors: plain
 
 
+def test_tf32_split_rounds_to_nearest_ties_away():
+    ulp = 2.0 ** -10                       # TF32 spacing at 1.0
+    v = torch.tensor([1.0 + ulp / 2, -(1.0 + ulp / 2), 1.0 + ulp / 2 - 2**-23,
+                      1.0 + 1.5 * ulp, 3.0], dtype=torch.float32)
+    big, small = k2.tf32_split(v)
+    np.testing.assert_array_equal(
+        big.numpy(), np.float32([1 + ulp, -(1 + ulp), 1.0, 1 + 2 * ulp, 3.0]))
+    assert (big.view(torch.int32) & 0x1FFF).eq(0).all()
+    assert (small.view(torch.int32) & 0x1FFF).eq(0).all()
+    x = torch.from_numpy(np.random.RandomState(0).randn(1000).astype(
+        np.float32))
+    b, s = k2.tf32_split(x)
+    assert ((b + s - x).abs() <= x.abs() * 2.0 ** -21).all()
+
+
+@pytest.mark.parametrize("b,n", [(3, 64), (8, 256)])
+def test_k2_3xtf32_matches_jax_reference_and_pallas(b, n):
+    """The kernel's split operands and three TF32 products, emulated in
+    fp32, against the JAX reference and the Pallas kernel."""
+    rng = np.random.RandomState(b + 10)
+    params, state = _jax_feat(b, rng)
+    x = rng.randn(b, n, 3).astype(np.float32)
+    jfold = jk2.fold_trunk_params(params, state)
+    ref = np.asarray(jk2.trunk_reference(jnp.asarray(x), jfold))
+    pallas = np.asarray(jk2.fused_trunk(jnp.asarray(x), jfold,
+                                        interpret=True))
+    with torch.no_grad():
+        folded = k2.fold_trunk_params(_port_feat(params, state))
+        emu = k2.trunk_3xtf32(torch.from_numpy(x), folded).numpy()
+        # one TF32 pass is not enough for this tolerance: the split matters
+        w1, b1, w2, b2, w3, b3 = folded
+        one = torch.relu(torch.from_numpy(x) @ w1 + b1)
+        one = torch.relu(k2.tf32_round(one) @ k2.tf32_round(w2) + b2)
+        one = torch.amax(k2.tf32_round(one) @ k2.tf32_round(w3) + b3, dim=1)
+    np.testing.assert_allclose(emu, ref, atol=ATOL, rtol=ATOL)
+    np.testing.assert_allclose(emu, pallas, atol=ATOL, rtol=ATOL)
+    assert np.abs(one.numpy() - ref).max() > 10 * np.abs(emu - ref).max()
+
+
+def test_k2_3xtf32_reproduces_the_golden_checkpoint(monkeypatch):
+    root = jk2.__file__.rsplit("/pointnetgpd_tpu/", 1)[0]
+    io = np.load(f"{root}/tests/fixtures/golden_io.npz")
+    model = pointnet_cls_from_state_dict(load_reference_checkpoint(
+        f"{root}/tests/fixtures/golden_pointnet_3class.npz"),
+        num_points=500, device="cpu")
+    monkeypatch.setattr(port_pointnet, "fused_trunk", k2.trunk_3xtf32)
+    x = torch.from_numpy(io["x"]).transpose(1, 2).contiguous()
+    logp, trans = pointnet_cls_infer(model, x)
+    np.testing.assert_allclose(trans.numpy(), io["trans"], atol=ATOL)
+    np.testing.assert_allclose(logp.numpy(), io["logp"], atol=ATOL)
+
+
+def test_k2_weights_sit_in_the_kernels_shared_memory_order():
+    """Element (n, k) of a block of rows lies at float offset
+    ((n // 8) * K / 4 + k // 4) * 32 + (n % 8) * 4 + k % 4 of its block: the
+    no-swizzle core-matrix layout that the kernel's wgmma descriptors read
+    (leading byte offset 128, stride byte offset K / 4 * 128)."""
+    w = torch.arange(256 * 128, dtype=torch.float32).reshape(256, 128)
+    tiled = k2.core_matrix_order(w, 64)
+    blocks = tiled.reshape(4, -1)
+    n, k = torch.meshgrid(torch.arange(64), torch.arange(128), indexing="ij")
+    off = ((n // 8) * 32 + k // 4) * 32 + (n % 8) * 4 + k % 4
+    for b in range(4):
+        assert torch.equal(blocks[b][off], w[64 * b:64 * (b + 1)])
+    assert torch.equal(k2.from_core_matrix_order(tiled), w)
+    folded = k2.FoldedTrunk([torch.randn(3, 64), torch.randn(64),
+                             torch.randn(64, 128), torch.randn(128),
+                             torch.randn(128, 1024), torch.randn(1024)])
+    w3b = k2.from_core_matrix_order(folded.tensor_core[5])
+    w3s = k2.from_core_matrix_order(folded.tensor_core[6])
+    order = [8 * (i // 8) + k2.TF32_K_ORDER[i % 8] for i in range(128)]
+    np.testing.assert_allclose((w3b + w3s).numpy(),
+                               folded[4].t()[:, order].numpy(), rtol=2**-21)
+
+
 def test_k2_cpu_route_launches_nothing():
     rng = np.random.RandomState(2)
     params, state = _jax_feat(2, rng)
@@ -224,7 +419,8 @@ def test_k2_cpu_route_launches_nothing():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,n", [(64, 500), (5, 37)])
+@pytest.mark.parametrize("b,n", [(64, 500), (5, 37), (512, 750), (4, 1),
+                                 (1, 300), (3, 129)])
 def test_k2_kernel_matches_plain_on_card(cuda_device, b, n):
     rng = np.random.RandomState(3)
     params, state = _jax_feat(3, rng)
