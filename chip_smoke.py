@@ -7,8 +7,12 @@ Phases, in order; any failure exits non-zero:
 1. the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the build time;
    from the built library's SASS (cuobjdump; the PTX where the toolkit has
-   no cuobjdump), show that K2 issues wgmma (HGMMA) and K1 no tensor-core
-   instruction;
+   no cuobjdump), show that K2 runs wgmma (HGMMA), K1 no tensor-core
+   instruction and K3 no division: no div in its PTX (built with the
+   library's flags), no FCHK in its SASS, and no slow-path CALL inside its
+   pair loops (each CALL's target is printed with what it holds); print
+   K3's registers, shared memory, stack and spills from ptxas and fail on
+   any local memory;
 3. K1 (GPG panel-count scan) against its plain version on the three scans of
    one frame of the 18k-point synthetic tabletop (the benchmark scene of
    bench.py, rebuilt here), bucketed at cloud_pad_to=4096: exact equality
@@ -34,14 +38,30 @@ Phases, in order; any failure exits non-zero:
    + max, TF32 off) that the port never calls; each kernel's bound and its
    share of it; warm ms per frame. With ``--profile``, also a
    torch.profiler breakdown of a few warm frames;
-7. the voxelizer path (``voxelizer_phases``).
+7. the voxelizer path (``voxelizer_phases``): prepare_object_dir on a
+   60,000-triangle torus at sdf_dim 100 (1 K3 launch, K1 and K2 none), the
+   SDF within 0.02 res of the analytic one; K3 against its plain version on
+   256 blocks and on its edge cases (one supertile, all-padding
+   supertiles, a far block, degenerate triangles); mesh_to_sdf at dim 48,
+   the convex decomposition and MeshProcessor against their plain routes;
+   timings; the supertiles K3 visits per block and the pairs it evaluates
+   (its own counts, from a separate launch), beside what the TPU kernel's
+   walk (index order) visits
+   on the same inputs (``kernel_walk`` in plain torch) and what each
+   design needs.
 
 Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
 slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
 the recorded scans) at 34 operations each, or the bytes of the real cloud,
 the active frames and the counts, whichever takes longer. K2: three TF32
 passes of layers 2-3 at 495 TFLOP/s plus layer 1 at the fp32 67 TFLOP/s
-(printed beside the all-fp32 CUDA-core bound).
+(printed beside the all-fp32 CUDA-core bound). K3: the (warp, triangle)
+pairs whose sphere lies nearer the warp's slab box than the warp's final
+max distance, x 32 points x 77 operations, plus a 17-operation reject test
+per (warp, triangle) of each supertile the block needs, or the bytes of its inputs and
+output (printed beside the supertile-granular bound: the needed (block,
+supertile) pairs x
+128 x 136).
 
 TF32 is switched off for torch's matmuls and cuDNN: only K2's own 3xTF32
 products use the tensor cores.
@@ -67,14 +87,20 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 K1_OPS_PER_PAIR = 34       # 3 coordinate chains (18 flops) + 16 compares
 K2_TOL = 1e-4
-# K3's fp32 operations per (point, triangle) pair, counted from the loop body
-# of csrc/point_triangle.cu as written (a fused multiply-add counts as the
+# K3's fp32 operations per (point, triangle) pair, counted from pair_d2 in
+# csrc/point_triangle.cu as written (a fused multiply-add counts as the
 # multiply and the add it replaces; compares and selects count one each):
-# 3 differences p - v x 3 vertices (9) + 6 dot products (30) + va, vb, vc (9)
-# + 15 compares and 2 differences for the region masks (17) + t_ab, t_ac,
-# t_bc (9) + the face denominator and v, w (5) + 3 coordinates of 6 selects
-# and 10 arithmetic (48) + the squared distance (8) + the running min (1)
-K3_OPS_PER_PAIR = 136
+# ap (3) + d1, d2, v, w as dot products (20) + x, vb, vc (3) + vb + vc (1)
+# + 15 compares for the region masks + t_ab, t_ac (2) + t_bc as one FMA (2)
+# + 1 - t_bc (1) + 12 selects of (s, t) + the residual a + s ab + t ac - p
+# (12) + the squared distance (5) + the running min (1)
+K3_OPS_PER_PAIR = 77
+# ... and per (warp, triangle) reject test: the sphere's offset from the
+# slab centre (3), less the slab's half-extents in magnitude (3), clamped at
+# 0 (3), its squared length (5), the reach and its square (2), the compare
+# (1)
+K3_OPS_PER_TEST = 17
+K3_OPS_PER_PAIR_TPU = 136  # the Pallas body: five divisions, six dot products
 K3_TOL = (1e-4, 1e-7)      # rtol, atol on distances (kernel vs plain)
 TORUS = (300, 100, 0.05, 0.02)   # nu, nv, R, r: 60,000 triangles
 
@@ -173,8 +199,10 @@ def profile_frames(torch, det, pts, cam, card, n=3):
 def sass_check(lib_path):
     """Count tensor-core instructions per kernel in the built library:
     wgmma (SASS HGMMA) must appear in K2's kernel and no HMMA/HGMMA in K1's.
-    Reads cuobjdump's SASS, or the PTX of the sources where the toolkit has
-    no cuobjdump."""
+    K3's kernel must hold no division: no div instruction in its PTX and,
+    from the SASS, none in its pair loops (``k3_sass_loops``). Reads
+    cuobjdump's SASS, or the PTX of the sources where the toolkit has no
+    cuobjdump."""
     import shutil
     import tempfile
 
@@ -200,10 +228,12 @@ def sass_check(lib_path):
         sections, kind = parts, "PTX"
         pat_k2, pat_k1 = ("wgmma.mma_async",), ("wgmma.mma_async", "mma.sync")
 
-    def count(fn, pats):
-        body = "".join(sec for sec in sections
+    def body(fn):
+        return "".join(sec for sec in sections
                        if sec.split("\n", 1)[0].find(fn) >= 0)
-        return sum(body.count(p) for p in pats)
+
+    def count(fn, pats):
+        return sum(body(fn).count(p) for p in pats)
 
     n_k2 = count("pointnet_trunk_kernel", pat_k2)
     n_k1 = count("gpg_counts_kernel", pat_k1)
@@ -215,6 +245,127 @@ def sass_check(lib_path):
         fail("K2 does not reach the tensor cores through wgmma")
     if n_k1 != 0:
         fail("K1 uses the tensor cores")
+    # K3: no division. Its PTX, compiled with the library's own flags,
+    # holds no div instruction; in the SASS there is no FCHK (the range
+    # check of an IEEE division), and no CALL to a slow path lies inside a
+    # pair loop, the backward-branch loops over the triangles that a warp
+    # keeps (the innermost ones with a FLO, the __ffs of the kept-triangle
+    # mask)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "point_triangle.ptx")
+        subprocess.run([_build._nvcc(), *_build.ARCH, *_build.COMMON,
+                        *_build.SOURCES["point_triangle.cu"], "-ptx",
+                        str(_build.CSRC / "point_triangle.cu"), "-o", out],
+                       check=True, timeout=300, capture_output=True)
+        ptx = "".join(sec for sec in open(out).read().split(".entry ")
+                      if "point_triangle_kernel" in sec.split("(", 1)[0])
+    if not ptx:
+        fail("point_triangle_kernel not found in its PTX")
+    divs = [ln.strip() for ln in ptx.splitlines() if "div." in ln]
+    print(f"point_triangle_kernel PTX (library flags): "
+          f"{ptx.count('rcp.approx')} x rcp.approx, {ptx.count('sqrt.rn')} x "
+          f"sqrt.rn, {len(divs)} div instructions", flush=True)
+    if divs:
+        fail(f"K3 holds a division: {divs[:3]}")
+    if kind == "SASS":
+        k3_sass_loops(body("point_triangle_kernel"), ptx.count("sqrt.rn"))
+
+
+def sass_instructions(text):
+    """(address, opcode, operands) of each instruction in cuobjdump's SASS
+    listing ``text``."""
+    import re
+
+    pat = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P(?:T|\d+)\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)([^;]*);")
+    return [(int(m.group(1), 16), m.group(2), m.group(3).strip())
+            for m in pat.finditer(text)]
+
+
+def k3_sass_loops(sass, n_sqrt):
+    """Fail unless K3's SASS holds no FCHK and no slow-path CALL inside a
+    pair loop; print where the CALLs go and what their target holds."""
+    import re
+
+    ins = sass_instructions(sass)
+    if not ins:
+        fail("cannot read point_triangle_kernel's SASS")
+    target = {}
+    for addr, op, args in ins:
+        m = re.search(r"0x([0-9a-f]+)", args)
+        if m and (op.startswith("BRA") or op.startswith("CALL")):
+            target[addr] = int(m.group(1), 16)
+    loops = [(target[a], a) for a, op, _ in ins
+             if op.startswith("BRA") and a in target and target[a] < a]
+    flo = [a for a, op, _ in ins if op.startswith("FLO")]
+    with_flo = [(lo, hi) for lo, hi in loops
+                if any(lo <= a <= hi for a in flo)]
+    # the innermost of them: the supertile loop around them holds a FLO too
+    pair_loops = [(lo, hi) for lo, hi in with_flo
+                  if not any((l2, h2) != (lo, hi) and lo <= l2 and h2 <= hi
+                             for l2, h2 in with_flo)]
+    calls = [a for a, op, _ in ins if op.startswith("CALL")]
+    inside = [a for a in calls
+              if any(lo <= a <= hi for lo, hi in pair_loops)]
+    fchk = [a for a, op, _ in ins if op.startswith("FCHK")]
+    subs = sorted({target[a] for a in calls if a in target})
+    held = []
+    for t in subs:                     # the subroutine: target .. first RET
+        ops = []
+        for a, op, _ in ins:
+            if a >= t:
+                ops.append(op)
+                if op.startswith("RET"):
+                    break
+        held.append(f"0x{t:x}: {len(ops)} instructions, "
+                    f"{sum(o.startswith('MUFU.RSQ') for o in ops)} MUFU.RSQ, "
+                    f"{sum(o.startswith('MUFU.RCP') for o in ops)} MUFU.RCP")
+    print(f"point_triangle_kernel SASS: {len(ins)} instructions, "
+          f"{sum(op.startswith('MUFU.RCP') for _, op, _ in ins)} x MUFU.RCP, "
+          f"{sum(op.startswith('MUFU.RSQ') for _, op, _ in ins)} x MUFU.RSQ, "
+          f"{len(fchk)} x FCHK; {len(calls)} slow-path CALLs ({n_sqrt} sqrt.rn "
+          f"in the PTX) to {held}; pair loops "
+          f"{[f'0x{lo:x}-0x{hi:x}' for lo, hi in pair_loops]} hold "
+          f"{len(inside)} of them", flush=True)
+    if not pair_loops:
+        fail("no pair loop found in K3's SASS")
+    if fchk or inside:
+        fail("K3's SASS holds a division check or a slow-path call in its "
+             "pair loop")
+
+
+def k3_ptxas():
+    """K3's registers, shared memory, stack and spills from the build's
+    ptxas -v output; fails on any stack frame or spill (local memory)."""
+    import re
+
+    from pointnetgpd_tpu_torch import _build
+
+    log = _build.ptxas_log or (_build.BUILD_DIR / "ptxas.log").read_text()
+    lines = log.splitlines()
+    start = [i for i, ln in enumerate(lines) if "Compiling entry" in ln
+             and "point_triangle_kernel" in ln]
+    if not start:
+        fail("no ptxas report for point_triangle_kernel")
+    part = []
+    for ln in lines[start[0] + 1:]:
+        if "Compiling entry" in ln or ln.startswith("=="):
+            break
+        part.append(ln)
+    text = " ".join(part)
+    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", text)
+    regs = re.search(r"Used (\d+) registers", text)
+    smem = re.search(r"(\d+) bytes smem", text)
+    if not (frame and regs):
+        fail(f"cannot read K3's ptxas report: {text}")
+    stack, st, ld = (int(g) for g in frame.groups())
+    print(f"K3 ptxas: {regs.group(1)} registers, "
+          f"{smem.group(1) if smem else 0} bytes static shared memory (+ 8 "
+          f"bytes per supertile, dynamic), stack frame {stack} bytes, spill "
+          f"stores {st} bytes, spill loads {ld} bytes", flush=True)
+    if stack or st or ld:
+        fail("K3 uses local memory")
 
 
 def _kernel_modules():
@@ -278,6 +429,88 @@ def close_distances(got, want):
     rtol, atol = K3_TOL
     diff = (got - want).abs()
     return bool((diff <= atol + rtol * want.abs()).all()), float(diff.max())
+
+
+def exact_distance_f64(torch, pts, tv):
+    """(P,) float64 distance from points (P, 3) to triangles (F, 3, 3),
+    robust to degenerate ones and independent of the port's arithmetic: the
+    nearest of the three edges, or of the plane where the projection falls
+    inside a triangle of non-zero area."""
+    p = pts.double()[:, None]
+    a, b, c = (tv.double()[None, :, k] for k in range(3))
+
+    def segment(u, w):
+        uw = w - u
+        ll = (uw * uw).sum(-1)
+        t = (((p - u) * uw).sum(-1) / torch.where(ll > 0, ll, 1.0)).clamp(0, 1)
+        return torch.linalg.norm(p - (u + t[..., None] * uw), dim=-1)
+
+    d = torch.minimum(torch.minimum(segment(a, b), segment(b, c)),
+                      segment(c, a))
+    n = torch.linalg.cross(b - a, c - a)
+    nn = (n * n).sum(-1)
+    ok = nn > 1e-30
+    h = ((p - a) * n).sum(-1) / torch.where(ok, nn, 1.0)
+    q = p - h[..., None] * n
+    inside = ok
+    for u, w in ((a, b), (b, c), (c, a)):
+        inside = inside & ((torch.linalg.cross((w - u).expand_as(q), q - u)
+                            * n).sum(-1) >= 0)
+    face = torch.minimum(d, h.abs() * nn.sqrt())
+    return torch.where(inside, face, d).amin(dim=1)
+
+
+def k3_edge_cases(torch, k3, launch3, dev):
+    """K3 where its walk and body have edges, to K3_TOL: one supertile;
+    all-padding supertiles before and after the real ones; a block 10 m
+    from the mesh (each against its plain version); degenerate triangles
+    (a == b, b == c, points, collinear) against a float64 distance
+    (``exact_distance_f64``), since the plain version, the JAX oracle's
+    closest point, puts a segment with b == c at vertex b (ROADMAP Queue
+    C); its gap to the float64 distance is printed beside."""
+    rs = np.random.RandomState(7)
+    grid, _ = k3.blocked_grid(8, 8, 16, [-0.02, -0.02, -0.04], 0.005)
+    tv0 = ((rs.rand(1000, 3, 3) - 0.5) * 0.1).astype(np.float32)
+    for case in ("one supertile", "all-padding supertiles", "far block",
+                 "degenerate triangles"):
+        pts, tv = grid, tv0.copy()
+        if case == "one supertile":
+            tv = tv[:100]
+        elif case == "far block":
+            pts = grid + np.float32(10.0)
+        elif case == "degenerate triangles":
+            tv[0::4, 1] = tv[0::4, 0]
+            tv[1::4, 2] = tv[1::4, 1]
+            tv[2::4] = tv[2::4, :1]
+            tv[3::4, 2] = 0.3 * tv[3::4, 0] + 0.7 * tv[3::4, 1]
+        tri_data, sup_data = k3.pack_triangles(tv)
+        if case == "all-padding supertiles":
+            pad_t = np.zeros((k3.SUPER, 16), np.float32)
+            pad_t[:, 0:9] = k3._FAR
+            pad_s = np.zeros((1, 8), np.float32)
+            pad_s[:, 0:3] = k3._FAR
+            tri_data = np.concatenate([pad_t, tri_data, pad_t, pad_t])
+            sup_data = np.concatenate([pad_s, sup_data, pad_s, pad_s])
+        args = [torch.from_numpy(a).to(dev) for a in (pts, tri_data, sup_data)]
+        got = launch3(*args).sqrt()
+        plain = k3.min_point_triangle_dist2_torch(*args).sqrt()
+        if case == "degenerate triangles":
+            want = exact_distance_f64(torch, args[0],
+                                      torch.from_numpy(tv).to(dev))
+            against = "float64 distance"
+        else:
+            want, against = plain, "plain"
+        torch.cuda.synchronize()
+        ok, err = close_distances(got, want)
+        extra = ""
+        if case == "degenerate triangles":
+            extra = (f"; |plain - float64| = "
+                     f"{float((plain - want).abs().max()):.3e} m")
+        print(f"K3 edge case, {case} ({tri_data.shape[0]} rows, "
+              f"{sup_data.shape[0]} supertiles, {pts.shape[0]} points): max "
+              f"|kernel - {against}| = {err:.3e} m{extra}", flush=True)
+        if not ok or not torch.isfinite(got).all():
+            fail(f"K3 disagrees with its {against}: {case}")
 
 
 def voxelizer_phases(torch, card):
@@ -381,6 +614,7 @@ def voxelizer_phases(torch, card):
               f"(rtol 1e-4, atol 1e-7)", flush=True)
         if not ok:
             fail("K3 disagrees with its plain version")
+        k3_edge_cases(torch, k3, launch3, dev)
 
         # c. the whole route at dim 48 against its plain route
         got48 = vox.mesh_to_sdf(mesh, dim=48, padding=5, device=dev)
@@ -465,36 +699,71 @@ def voxelizer_phases(torch, card):
         write_sdf(os.path.join(tmp, "timed.sdf"), warm)
         host["write_sdf (1M values)"] = (time.perf_counter() - t0) * 1e3
 
-    # K3's bound: the supertiles each block needs under the final output
-    # (lower bound below sqrt(max d^2 of the block), plus the nearest one),
-    # times 128 points x the real triangles of each, times the ops per pair
-    pts3 = pts_b.reshape(n_blocks, -1, 3)
-    lo, hi = pts3.amin(dim=1), pts3.amax(dim=1)
-    ctr, bhd = 0.5 * (lo + hi), 0.5 * torch.linalg.norm(hi - lo, dim=1)
-    db = (torch.linalg.norm(sup_data[None, :, :3] - ctr[:, None], dim=2)
-          - sup_data[None, :, 3] - bhd[:, None])
+    # what each design needs under the final output. Supertile granular
+    # (the TPU kernel's): the supertiles whose lower bound is below
+    # sqrt(max d^2 of the block), plus the nearest, x 128 points x their
+    # real triangles. This design: the (warp, triangle) pairs whose sphere
+    # lies nearer the warp's slab box than the warp's final max distance,
+    # x 32 points, plus one reject test per (warp, triangle) of each needed
+    # supertile.
+    db = k3.supertile_bounds(pts_b, sup_data)
     need = db < d2.reshape(n_blocks, -1).amax(dim=1).sqrt()[:, None]
     need[torch.arange(n_blocks, device=dev), db.argmin(dim=1)] = True
     n_sup = sup_data.shape[0]
     real = torch.clamp(n_real - k3.SUPER * torch.arange(n_sup, device=dev),
                        0, k3.SUPER).double()
-    pairs = float(k3.BLOCK_POINTS * (need.double() @ real).sum())
-    ops = pairs * K3_OPS_PER_PAIR
+    pairs_tile = float(k3.BLOCK_POINTS * (need.double() @ real).sum())
+    ops_tile = pairs_tile * K3_OPS_PER_PAIR_TPU
+    pairs = float(k3.warp_pairs_needed(pts_b, tri_data, d2).sum())
+    tests = float(need.sum()) * (k3.BLOCK_POINTS // k3.WARP) * k3.SUPER
+    ops = pairs * K3_OPS_PER_PAIR + tests * K3_OPS_PER_TEST
     nbytes = (pts_b.numel() + tri_data.numel() + sup_data.numel()
               + d2.numel()) * 4
     bound = max(ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    bound_tile = max(ops_tile / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES) * 1e3
     by = "operations" if ops / PEAK_FP32_FLOPS > nbytes / PEAK_BYTES \
         else "bytes"
-    per_block = float(need.sum(dim=1).double().mean())
+    per_block = need.sum(dim=1).double()
+
+    # what each design does: this kernel counts its own walk in a separate
+    # launch; the TPU kernel's walk (index order, every row of a visited
+    # supertile) is counted in plain torch from the same inputs
+    stats = torch.zeros((n_blocks, 2), dtype=torch.int32, device=dev)
+    same = torch.equal(launch3(pts_b, tri_data, sup_data, stats=stats), d2)
+    if not same or int(stats[:, 1].min()) < k3.WARP:
+        fail("K3's counting launch differs from the main path's output")
+    visited = stats[:, 0].double()
+    evaluated = float(stats[:, 1].double().sum())
+    t0 = time.perf_counter()
+    _, tpu_visited, tpu_evaluated = k3.kernel_walk(
+        pts_b, tri_data, sup_data, sorted_walk=False, warp_reject=False)
+    torch.cuda.synchronize()
+    walk_s = time.perf_counter() - t0
+    tpu_visited = tpu_visited.double()
+    print(f"K3 walk, supertiles per block (mean, max): visited "
+          f"{float(visited.mean()):.2f}, {int(visited.max())}; needed "
+          f"{float(per_block.mean()):.2f}, {int(per_block.max())}; the TPU "
+          f"kernel's index-order walk would visit "
+          f"{float(tpu_visited.mean()):.2f}, {int(tpu_visited.max())} (plain "
+          f"torch, {walk_s:.1f} s)", flush=True)
+    print(f"K3 point-triangle pairs: evaluated {evaluated:.4e} against "
+          f"{pairs:.4e} needed by the per-warp reject (+ {tests:.4e} reject "
+          f"tests); the TPU kernel's walk evaluates "
+          f"{float(tpu_evaluated.sum()):.4e} "
+          f"against {pairs_tile:.4e} needed by whole supertiles; "
+          f"{pts_b.shape[0] * n_real:.4e} unpruned", flush=True)
     print(f"timings on {card}:", flush=True)
     print(f"  K3 alone, full size (P={pts_b.shape[0]}, {n_real} triangles): "
           f"{ms:.4f} ms per launch ({card})")
     print(f"  K3 plain version on the 256-block subset (32,768 points x "
           f"{n_real} triangles): {plain_ms:.3f} ms ({card})")
-    print(f"  K3 bound {bound:.4f} ms ({by}; {per_block:.2f} of {n_sup} "
-          f"supertiles per block needed, {pairs:.4e} point-triangle pairs "
-          f"against {pts_b.shape[0] * n_real:.4e} unpruned, x "
-          f"{K3_OPS_PER_PAIR} ops = {ops:.4e} ops; {nbytes} bytes) ({card})")
+    print(f"  K3 bound {bound:.4f} ms ({by}; {pairs:.4e} pairs x "
+          f"{K3_OPS_PER_PAIR} + {tests:.4e} tests x {K3_OPS_PER_TEST} = "
+          f"{ops:.4e} ops; {nbytes} bytes), {100 * bound / ms:.1f}% of it; "
+          f"the supertile-granular bound {bound_tile:.4f} ms "
+          f"({pairs_tile:.4e} pairs x "
+          f"{K3_OPS_PER_PAIR_TPU} ops), {100 * bound_tile / ms:.1f}% of it "
+          f"({card})")
     print(f"  _inside_parity, full size (10,000 columns x 100 z): "
           f"{parity_ms:.3f} ms ({card})")
     print(f"  mesh_to_sdf, full size: {m2s_ms:.2f} ms warm per call (host "
@@ -537,6 +806,7 @@ def main():
                 or "wgmma" in line:
             print(f"  ptxas {line.strip()}")
     sass_check(_build.build())
+    k3_ptxas()
 
     from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
     from pointnetgpd_tpu_torch.ops import gpg_counts as k1

@@ -36,6 +36,7 @@ from pointnetgpd_tpu_torch.models.pointnet import PointNetfeat, pointnet_cls_inf
 from pointnetgpd_tpu_torch.ops import gpg_counts as k1
 from pointnetgpd_tpu_torch.ops import point_triangle as k3
 from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
+from test_torch_voxelizer import _exact_distance
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -456,3 +457,58 @@ def test_k3_kernel_matches_plain_on_card(cuda_device):
     np.testing.assert_allclose(got.sqrt().cpu().numpy(),
                                want.sqrt().cpu().numpy(), rtol=1e-4,
                                atol=1e-7)
+
+
+def _k3_edge_case(case):
+    """(points, triangles) float32 for K3's edge cases on the card."""
+    rs = np.random.RandomState(7)
+    pts, _ = k3.blocked_grid(8, 8, 16, [-0.02, -0.02, -0.04], 0.005)
+    tv = ((rs.rand(1000, 3, 3) - 0.5) * 0.1).astype(np.float32)
+    if case == "one_supertile":
+        tv = tv[:100]
+    elif case == "far_block":                # grid 10 m from the mesh
+        pts = pts + np.float32(10.0)
+    elif case == "degenerate":
+        tv[0::4, 1] = tv[0::4, 0]            # a == b
+        tv[1::4, 2] = tv[1::4, 1]            # b == c
+        tv[2::4] = tv[2::4, :1]              # points
+        tv[3::4, 2] = 0.3 * tv[3::4, 0] + 0.7 * tv[3::4, 1]   # collinear
+    return pts, tv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_supertile", "all_padding_supertiles",
+                                  "far_block", "degenerate"])
+def test_k3_kernel_edge_cases_on_card(cuda_device, case):
+    """K3 against its plain version on the edge cases of its walk and body:
+    one supertile, all-padding supertiles appended (never better than a
+    real one), a block far from the mesh; on degenerate triangles against
+    a float64 distance (``_exact_distance``), since the plain version's
+    edge priority, the JAX oracle's, misplaces segments with b == c. The
+    stats launch returns the same distances and counts at least one
+    supertile and one pair per block."""
+    pts, tv = _k3_edge_case(case)
+    tri_data, sup_data = k3.pack_triangles(tv)
+    if case == "all_padding_supertiles":
+        pad_t = np.zeros((3 * k3.SUPER, 16), np.float32)
+        pad_t[:, 0:9] = k3._FAR
+        pad_s = np.zeros((3, 8), np.float32)
+        pad_s[:, 0:3] = k3._FAR
+        tri_data = np.concatenate([pad_t[:k3.SUPER], tri_data,
+                                   pad_t[k3.SUPER:]])
+        sup_data = np.concatenate([pad_s[:1], sup_data, pad_s[1:]])
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in (pts, tri_data, sup_data)]
+    got = k3.min_point_triangle_dist2(*args)
+    if case == "degenerate":
+        want = _exact_distance(pts, tv)
+    else:
+        want = k3.min_point_triangle_dist2_torch(*args).sqrt().cpu().numpy()
+    np.testing.assert_allclose(got.sqrt().cpu().numpy(), want, rtol=1e-4,
+                               atol=1e-7)
+    stats = torch.zeros((pts.shape[0] // k3.BLOCK_POINTS, 2),
+                        dtype=torch.int32, device=cuda_device)
+    again = k3._launch(*args, stats=stats)
+    assert torch.equal(again, got)
+    assert (stats[:, 0] >= 1).all() and (stats[:, 1] >= 32).all()
+    assert (stats[:, 0] <= sup_data.shape[0]).all()

@@ -203,6 +203,184 @@ def test_plain_matches_pallas_kernel_in_interpret_mode():
                                atol=K_ATOL)
 
 
+# ----------------------------------------- the kernel's division-free body
+
+def _body_case(name):
+    """(points (128, 3), triangles (F, 3, 3)) float32 for the pair body."""
+    rs = np.random.RandomState(len(name))
+    tv = ((rs.rand(24, 3, 3) - 0.5) * 0.1).astype(np.float32)
+    pts = ((rs.rand(128, 3) - 0.5) * 0.2).astype(np.float32)
+    if name == "vertices_edges_faces":
+        bary = rs.dirichlet([1, 1, 1], 24).astype(np.float32)
+        face = np.einsum("fk,fkd->fd", bary, tv)
+        n = np.cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0])
+        n /= np.linalg.norm(n, axis=1, keepdims=True)
+        t = rs.rand(24, 1).astype(np.float32)
+        pts[:24] = tv[:, 0]                                  # on vertices
+        pts[24:48] = tv[:, 1] + t * (tv[:, 2] - tv[:, 1])    # on edges bc
+        pts[48:72] = face                                    # on faces
+        pts[72:96] = face + 0.003 * n                        # above faces
+    elif name == "degenerate":
+        tv[0, 1] = tv[0, 0]                                  # a == b
+        tv[1, 2] = tv[1, 1]                                  # b == c
+        tv[2] = tv[2, 0]                                     # a point
+        tv[3, 2] = 0.3 * tv[3, 0] + 0.7 * tv[3, 1]           # collinear
+        tv[4, 2] = 1.7 * tv[4, 1] - 0.7 * tv[4, 0]           # collinear, out
+        for i in range(5, 13):                               # slivers
+            ab = tv[i, 1] - tv[i, 0]
+            perp = np.cross(ab, rs.rand(3) - 0.5)
+            tv[i, 2] = (tv[i, 0] + rs.rand() * ab + 10.0 ** -(i - 2) * perp
+                        / np.linalg.norm(perp))
+        pts[:13] = tv[:13, 2]
+        pts[13:26] = 0.5 * (tv[:13, 0] + tv[:13, 2]) + 1e-3
+    elif name == "padding_rows":
+        tv = tv[:5]                      # 123 padding rows at 1e8 in tri_data
+    elif name == "far_points":
+        pts = pts / np.linalg.norm(pts, axis=1, keepdims=True) * 50.0
+    return pts, tv
+
+
+def _exact_distance(pts, tv):
+    """Float64 distance from points to triangles, robust to degenerate
+    ones: the nearest of the three edges, or of the plane where the
+    projection falls inside a triangle of non-zero area."""
+    p = pts.astype(np.float64)[:, None]
+    a, b, c = (tv[None, :, k].astype(np.float64) for k in range(3))
+
+    def segment(u, w):
+        uw = w - u
+        ll = (uw * uw).sum(-1)
+        t = np.clip(((p - u) * uw).sum(-1) / np.where(ll > 0, ll, 1), 0, 1)
+        return np.linalg.norm(p - (u + t[..., None] * uw), axis=-1)
+
+    d = np.minimum(np.minimum(segment(a, b), segment(b, c)), segment(c, a))
+    n = np.cross(b - a, c - a)
+    nn = (n * n).sum(-1)
+    ok = nn > 1e-30
+    h = ((p - a) * n).sum(-1) / np.where(ok, nn, 1)
+    q = p - h[..., None] * n
+    inside = ok & np.all([(np.cross(w - u, q - u) * n).sum(-1) >= 0
+                          for u, w in ((a, b), (b, c), (c, a))], axis=0)
+    return np.where(inside, np.minimum(d, np.abs(h) * np.sqrt(nn)),
+                    d).min(axis=1)
+
+
+def _close(got, want):
+    return np.abs(got - want) <= K_ATOL + K_RTOL * np.abs(want)
+
+
+@pytest.mark.parametrize("name", ["vertices_edges_faces", "degenerate",
+                                  "padding_rows", "far_points"])
+def test_division_free_body_matches_jax(name):
+    """The kernel's pair body in plain torch (per-triangle constants and
+    reciprocals, no division) over every row of ``tri_data``, padding
+    included, against jitted ``_unsigned_distance``, the Pallas kernel in
+    interpret mode and a float64 distance, to rtol 1e-4, atol 1e-7.
+
+    On degenerate triangles each reference has a fault of its own: the
+    oracle's edge priority sends a segment with b == c to vertex b, the
+    Pallas body's sends one with a == b to vertex a, and both lose digits
+    on slivers. The body rotates each triangle so that bc is its shortest
+    edge and takes the face weights from per-triangle vectors: it holds to
+    the float64 distance everywhere, and to each reference wherever that
+    reference holds to the float64 distance."""
+    import jax
+
+    pts, tv = _body_case(name)
+    tri_data, sup_data = k3.pack_triangles(tv)
+    consts, spheres = k3.stage_triangles(torch.from_numpy(tri_data))
+    pair = k3.pair_dist2_staged(torch.from_numpy(pts)[:, None], consts[None])
+    assert torch.isfinite(pair).all()
+    got = pair.amin(dim=1).sqrt().numpy()
+    exact = _exact_distance(pts, tv)
+    assert _close(got, exact).all()
+    oracle = np.asarray(jax.jit(jm._unsigned_distance)(jnp.asarray(pts),
+                                                       jnp.asarray(tv)))
+    pallas = np.sqrt(np.asarray(jk3.min_point_triangle_dist2(
+        jnp.asarray(pts), jnp.asarray(tri_data), jnp.asarray(sup_data),
+        interpret=True)))
+    for ref in (oracle, pallas):
+        right = _close(ref, exact)
+        assert right.all() or name == "degenerate"
+        assert right.sum() >= len(pts) - 4
+        assert _close(got[right], ref[right]).all()
+    # every real triangle lies inside its sphere, padding ones at 1e8
+    real = np.abs(tri_data[:, 0]) < k3._FAR / 2
+    v = torch.from_numpy(tri_data[:, 0:9].reshape(-1, 3, 3))
+    gap = torch.linalg.norm(v - spheres[:, None, :3], dim=2).amax(dim=1)
+    assert (gap[real] <= spheres[real, 3]).all()
+    assert (spheres[~real, :3] == k3._FAR).all()
+
+
+def _walk_case():
+    """A torus of 3,072 triangles (24 supertiles) and every 20th block of
+    a blocked 40^3 grid around it: blocks small next to the mesh, near and
+    far from the surface, as at the voxelizer's resolution."""
+    v, f = torus(64, 24)
+    tri_data, sup_data = k3.pack_triangles(v[f].astype(np.float32))
+    pts, _ = k3.blocked_grid(40, 40, 40, [-0.075] * 3, 0.15 / 40)
+    pts = pts.reshape(-1, k3.BLOCK_POINTS, 3)[::20].reshape(-1, 3)
+    return [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (pts, tri_data, sup_data)]
+
+
+@pytest.mark.parametrize("sorted_walk", [True, False])
+@pytest.mark.parametrize("warp_reject", [True, False])
+def test_kernel_walk_returns_the_brute_force_minimum(sorted_walk,
+                                                    warp_reject):
+    """The kernel's walk (bound order or index order, with or without the
+    per-warp reject) returns the minimum of the same pair body over every
+    triangle, exactly, and the bound-ordered walk visits no more supertiles
+    per block than the TPU kernel's index-order walk."""
+    pts, tri_data, sup_data = _walk_case()
+    consts, _ = k3.stage_triangles(tri_data)
+    brute = torch.cat([k3.pair_dist2_staged(pts[c:c + 512, None],
+                                            consts[None]).amin(dim=1)
+                       for c in range(0, pts.shape[0], 512)])
+    d2, visited, pairs = k3.kernel_walk(pts, tri_data, sup_data,
+                                        sorted_walk=sorted_walk,
+                                        warp_reject=warp_reject)
+    assert torch.equal(d2, brute)
+    _, index_visited, full_pairs = k3.kernel_walk(
+        pts, tri_data, sup_data, sorted_walk=False, warp_reject=False)
+    assert (visited <= index_visited).all() if sorted_walk else \
+        torch.equal(visited, index_visited)
+    assert (visited >= 1).all() and (visited < sup_data.shape[0]).any()
+    if warp_reject:
+        assert (pairs <= visited * k3.BLOCK_POINTS * k3.SUPER).all()
+        assert pairs.sum() < full_pairs.sum()
+    else:
+        assert torch.equal(pairs, visited * k3.BLOCK_POINTS * k3.SUPER)
+    np.testing.assert_allclose(
+        d2.sqrt().numpy(),
+        k3.min_point_triangle_dist2_torch(pts, tri_data).sqrt().numpy(),
+        rtol=K_RTOL, atol=K_ATOL)
+
+
+def test_warp_pairs_needed_counts_what_the_reject_keeps():
+    """Under the final distances, the pairs the reject must keep are at
+    most what the walk with the reject evaluated, and positive per block."""
+    pts, tri_data, sup_data = _walk_case()
+    d2, _, pairs = k3.kernel_walk(pts, tri_data, sup_data)
+    need = k3.warp_pairs_needed(pts, tri_data, d2)
+    assert (need > 0).all() and need.sum() <= pairs.sum()
+
+
+def test_k3_launch_checks_its_arguments():
+    """The wrapper raises on what the kernel cannot take, before any
+    build: a stats tensor of the wrong shape or type, too many
+    supertiles for the kernel's sort."""
+    pts, tri_data, sup_data = _walk_case()
+    for bad in (torch.zeros((3, 2), dtype=torch.int32),
+                torch.zeros((pts.shape[0] // 128, 2))):
+        with pytest.raises(ValueError, match="stats"):
+            k3._launch(pts, tri_data, sup_data, stats=bad)
+    n = k3.MAX_SUPERTILES + 1
+    with pytest.raises(ValueError, match="supertiles"):
+        k3._launch(pts, torch.zeros((n * k3.SUPER, 16)),
+                   torch.zeros((n, 8)))
+
+
 # ------------------------------------------------------------------ voxelizer
 
 def _grid_inputs(v, f, dim, padding=3):
