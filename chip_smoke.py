@@ -1,5 +1,6 @@
-"""Drive the PyTorch/CUDA port's two paths on one GPU: the online
-grasp-detection frame and the mesh -> SDF voxelizer (object preparation).
+"""Drive the PyTorch/CUDA port's three paths on one GPU: the online
+grasp-detection frame, the mesh -> SDF voxelizer (object preparation) and
+the trainer.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -48,7 +49,33 @@ Phases, in order; any failure exits non-zero:
    (its own counts, from a separate launch), beside what the TPU kernel's
    walk (index order) visits
    on the same inputs (``kernel_walk`` in plain torch) and what each
-   design needs.
+   design needs;
+7f. K3 above the 16,384 supertiles it sorts at a time: a torus of 2,160,000
+   triangles (16,875 supertiles), 16 point blocks (8 with near supertiles
+   in both chunks) against the brute force, its counts beside the
+   plain-torch chunked walk's, its time;
+8. the training path (``training_phases``) at the 1v variant's full width:
+   ``Trainer.fit`` with TrainConfig's defaults (k=2, 750 points, batch 128,
+   lr 0.005) on learnable synthetic data of 20,000-point clouds, 2 epochs x
+   5 steps and 2 eval batches each. Counters zeroed just before: K2 must
+   launch twice per eval batch, K1 and K3 never; losses and parameters
+   finite, every parameter and running statistic moved. K2 at the eval
+   shape (128, 750) against its plain version; the checkpoint fit wrote
+   loaded by ``GraspScorer.from_checkpoint`` predicts as the trained model;
+   one step on the card against the same step on the CPU (same weights,
+   the same draws replayed) and the ``fused_maxpool`` step against the
+   unfused one, all against the same step in float64 on the CPU: losses
+   within 1e-5 relative, the card's (the fused step's) largest gradient
+   error against float64 at most twice the CPU's (the unfused step's) plus
+   1e-4 x max|g| (float32 gradients of the STN's layers are ill-conditioned
+   at this width on either device: a few percent of max|g| off float64),
+   the biases that BatchNorm absorbs within 1e-3 x max|g| of noise,
+   running statistics within 1e-5;
+   the 1v_mc and 1v_gpd variants through ``cli.train.main`` (the card by
+   default); timings (CUDA events) of the fp32, bf16 and fused_maxpool steps
+   with samples/s and peak memory, and of a GPD step. With ``--profile``,
+   host time per ``record_function`` span (``train.*``, ``eval.*``) and the
+   device's busy share of one train step and one eval batch.
 
 Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
 slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
@@ -105,6 +132,19 @@ K3_TOL = (1e-4, 1e-7)      # rtol, atol on distances (kernel vs plain)
 TORUS = (300, 100, 0.05, 0.02)   # nu, nv, R, r: 60,000 triangles
 
 
+def k2_bounds(b, n):
+    """K2's (3xTF32 tensor-core bound, all-fp32 CUDA-core bound) in ms at
+    (B, N): the larger of operations and bytes (inputs and weights read
+    once, the (B, 1024) output written once)."""
+    l1 = 2.0 * b * n * 3 * 64
+    l23 = 2.0 * b * n * (64 * 128 + 128 * 1024)
+    nbytes = (b * n * 3 + 3 * 64 + 64 + 64 * 128 + 128 + 128 * 1024
+              + 1024 + b * 1024) * 4
+    mem = nbytes / PEAK_BYTES
+    return (max(3 * l23 / PEAK_TF32_FLOPS + l1 / PEAK_FP32_FLOPS, mem)
+            * 1e3, max((l1 + l23) / PEAK_FP32_FLOPS, mem) * 1e3)
+
+
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", flush=True)
     sys.exit(1)
@@ -159,27 +199,10 @@ def profile_frames(torch, det, pts, cam, card, n=3):
             det.process_frame(pts, cam, seed=300 + s)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    from torch.autograd import DeviceType
-
-    # device activity = the events that ran on the card (kernels, copies,
-    # memsets), not the host ops that launched them and not the frame.*
-    # labels, which also appear as device-side ranges
-    dev_events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)
-                  and not e.key.startswith("frame.")]
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in dev_events)
-    busy = total = 0.0
-    end = -float("inf")
-    for a, b in spans:                    # union of the device intervals
-        total += b - a
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    busy, total, dev_events = device_busy(torch, prof, skip=("frame.",))
     print(f"profile ({n} frames, {card}): wall {wall_us / n / 1e3:.2f} ms "
           f"per frame, device busy {busy / n / 1e3:.3f} ms per frame "
-          f"({100 * busy / wall_us:.1f}% busy; {len(spans) // n} device "
+          f"({100 * busy / wall_us:.1f}% busy; {len(dev_events) // n} device "
           f"events and {total / n / 1e3:.3f} ms of their summed time per "
           f"frame)")
     for e in sorted(prof.key_averages(), key=lambda e: e.key):
@@ -267,8 +290,11 @@ def sass_check(lib_path):
           f"sqrt.rn, {len(divs)} div instructions", flush=True)
     if divs:
         fail(f"K3 holds a division: {divs[:3]}")
-    if kind == "SASS":
-        k3_sass_loops(body("point_triangle_kernel"), ptx.count("sqrt.rn"))
+    if kind == "SASS":      # each instance (single sorted walk, chunked)
+        for sec in sections:
+            name = sec.split("\n", 1)[0].strip()
+            if "point_triangle_kernel" in name:
+                k3_sass_loops(sec, name)
 
 
 def sass_instructions(text):
@@ -282,9 +308,10 @@ def sass_instructions(text):
             for m in pat.finditer(text)]
 
 
-def k3_sass_loops(sass, n_sqrt):
-    """Fail unless K3's SASS holds no FCHK and no slow-path CALL inside a
-    pair loop; print where the CALLs go and what their target holds."""
+def k3_sass_loops(sass, name):
+    """Fail unless the SASS of K3's instance ``name`` holds no FCHK and no
+    slow-path CALL inside a pair loop; print where the CALLs go and what
+    their target holds."""
     import re
 
     ins = sass_instructions(sass)
@@ -320,11 +347,11 @@ def k3_sass_loops(sass, n_sqrt):
         held.append(f"0x{t:x}: {len(ops)} instructions, "
                     f"{sum(o.startswith('MUFU.RSQ') for o in ops)} MUFU.RSQ, "
                     f"{sum(o.startswith('MUFU.RCP') for o in ops)} MUFU.RCP")
-    print(f"point_triangle_kernel SASS: {len(ins)} instructions, "
+    print(f"{name} SASS: {len(ins)} instructions, "
           f"{sum(op.startswith('MUFU.RCP') for _, op, _ in ins)} x MUFU.RCP, "
           f"{sum(op.startswith('MUFU.RSQ') for _, op, _ in ins)} x MUFU.RSQ, "
-          f"{len(fchk)} x FCHK; {len(calls)} slow-path CALLs ({n_sqrt} sqrt.rn "
-          f"in the PTX) to {held}; pair loops "
+          f"{len(fchk)} x FCHK; {len(calls)} slow-path CALLs to {held}; "
+          f"pair loops "
           f"{[f'0x{lo:x}-0x{hi:x}' for lo, hi in pair_loops]} hold "
           f"{len(inside)} of them", flush=True)
     if not pair_loops:
@@ -335,37 +362,42 @@ def k3_sass_loops(sass, n_sqrt):
 
 
 def k3_ptxas():
-    """K3's registers, shared memory, stack and spills from the build's
-    ptxas -v output; fails on any stack frame or spill (local memory)."""
+    """Registers, shared memory, stack and spills of each of K3's instances
+    from the build's ptxas -v output; fails on any stack frame or spill
+    (local memory)."""
     import re
 
     from pointnetgpd_tpu_torch import _build
 
     log = _build.ptxas_log or (_build.BUILD_DIR / "ptxas.log").read_text()
     lines = log.splitlines()
-    start = [i for i, ln in enumerate(lines) if "Compiling entry" in ln
-             and "point_triangle_kernel" in ln]
-    if not start:
+    starts = [i for i, ln in enumerate(lines) if "Compiling entry" in ln
+              and "point_triangle_kernel" in ln]
+    if not starts:
         fail("no ptxas report for point_triangle_kernel")
-    part = []
-    for ln in lines[start[0] + 1:]:
-        if "Compiling entry" in ln or ln.startswith("=="):
-            break
-        part.append(ln)
-    text = " ".join(part)
-    frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", text)
-    regs = re.search(r"Used (\d+) registers", text)
-    smem = re.search(r"(\d+) bytes smem", text)
-    if not (frame and regs):
-        fail(f"cannot read K3's ptxas report: {text}")
-    stack, st, ld = (int(g) for g in frame.groups())
-    print(f"K3 ptxas: {regs.group(1)} registers, "
-          f"{smem.group(1) if smem else 0} bytes static shared memory (+ 8 "
-          f"bytes per supertile, dynamic), stack frame {stack} bytes, spill "
-          f"stores {st} bytes, spill loads {ld} bytes", flush=True)
-    if stack or st or ld:
-        fail("K3 uses local memory")
+    for start in starts:
+        part = []
+        for ln in lines[start + 1:]:
+            if "Compiling entry" in ln or ln.startswith("=="):
+                break
+            part.append(ln)
+        text = " ".join(part)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", text)
+        regs = re.search(r"Used (\d+) registers", text)
+        smem = re.search(r"(\d+) bytes smem", text)
+        entry = re.search(r"entry function '([^']+)'", lines[start])
+        if not (frame and regs):
+            fail(f"cannot read K3's ptxas report: {text}")
+        stack, st, ld = (int(g) for g in frame.groups())
+        print(f"K3 ptxas, {entry.group(1) if entry else lines[start]}: "
+              f"{regs.group(1)} registers, "
+              f"{smem.group(1) if smem else 0} bytes static shared memory "
+              f"(+ 8 bytes per supertile up to 16,384, dynamic), stack frame "
+              f"{stack} bytes, spill stores {st} bytes, spill loads {ld} "
+              f"bytes", flush=True)
+        if stack or st or ld:
+            fail("K3 uses local memory")
 
 
 def _kernel_modules():
@@ -779,6 +811,436 @@ def voxelizer_phases(torch, card):
             "bound_by": by, "library_ms": None}
 
 
+def k3_above_cap(torch, card, dev="cuda", nu=1500, nv=720):
+    """Phase 7f: K3 on a torus of 2 nu nv = 2,160,000 triangles (16,875
+    supertiles, above the 16,384 it sorts at a time): the chunked walk on
+    16 point blocks against the brute force, its counts and time."""
+    from pointnetgpd_tpu_torch.ops import point_triangle as k3
+
+    dev = torch.device(dev)
+    launch3 = k3._launch
+    v, f = torus_mesh(nu, nv, *TORUS[2:])
+    t0 = time.perf_counter()
+    tri_data, sup_data = k3.pack_triangles(v[f].astype(np.float32))
+    pack_s = time.perf_counter() - t0
+    n_sup = sup_data.shape[0]
+    if n_sup <= k3.SORT_CHUNK:
+        fail("the torus does not exceed the sort chunk")
+    # candidate blocks near the surface; keep the 8 nearest the boundary
+    # between the two chunks (both chunks hold a near supertile) and 8
+    # spread over the rest
+    res = 0.15 / 96
+    grid, _ = k3.blocked_grid(96, 96, 24, [-0.075, -0.075, -0.025], res)
+    blocks = grid.reshape(-1, k3.BLOCK_POINTS, 3)
+    near = np.abs(torus_sdf(blocks.mean(axis=1).astype(np.float64),
+                            *TORUS[2:])) < 4 * res
+    cand = torch.from_numpy(np.ascontiguousarray(blocks[near])).to(dev)
+    tri_d = torch.from_numpy(tri_data).to(dev)
+    sup_d = torch.from_numpy(sup_data).to(dev)
+    db = k3.supertile_bounds(cand.reshape(-1, 3), sup_d)
+    lo0 = db[:, :k3.SORT_CHUNK].amin(dim=1)
+    lo1 = db[:, k3.SORT_CHUNK:].amin(dim=1)
+    straddle = torch.argsort(torch.maximum(lo0, lo1))[:8]
+    rest = torch.ones(cand.shape[0], dtype=torch.bool, device=dev)
+    rest[straddle] = False
+    rest_idx = torch.nonzero(rest)[:, 0]
+    spread = rest_idx[torch.linspace(0, len(rest_idx) - 1, 8,
+                                     device=dev).long()]
+    pts = cand[torch.cat([straddle, spread])].reshape(-1, 3).contiguous()
+    got = launch3(pts, tri_d, sup_d)
+    want = k3.min_point_triangle_dist2_torch(pts, tri_d, sup_d)
+    torch.cuda.synchronize()
+    ok, err = close_distances(got.sqrt(), want.sqrt())
+    stats = torch.zeros((16, 2), dtype=torch.int32, device=dev)
+    same = torch.equal(launch3(pts, tri_d, sup_d, stats=stats), got)
+    ms = cuda_ms(torch, lambda: launch3(pts, tri_d, sup_d), iters=5, warm=1)
+    # what each block needs under its final distance, per chunk
+    dbp = k3.supertile_bounds(pts, sup_d)
+    need = dbp < got.reshape(16, -1).amax(dim=1).sqrt()[:, None]
+    both = int((need[:, :k3.SORT_CHUNK].any(dim=1)
+                & need[:, k3.SORT_CHUNK:].any(dim=1)).sum())
+    _, walk_visited, _ = k3.kernel_walk(pts, tri_d, sup_d,
+                                        sort_chunk=k3.SORT_CHUNK)
+    print(f"K3 above the old cap: {f.shape[0]} triangles in {n_sup} "
+          f"supertiles (chunks of {k3.SORT_CHUNK}; pack_triangles "
+          f"{pack_s:.2f} s on the host), 16 blocks ({both} need supertiles "
+          f"of both chunks): max |kernel - brute force| = {err:.3e} m "
+          f"(rtol 1e-4, atol 1e-7); supertiles visited per block "
+          f"{stats[:, 0].tolist()} (the plain-torch chunked walk "
+          f"{walk_visited.tolist()}), pairs evaluated "
+          f"{int(stats[:, 1].sum())}; {ms:.4f} ms per launch ({card})",
+          flush=True)
+    if not ok or not same or not torch.isfinite(got).all():
+        fail("K3 disagrees with the brute force above the old cap")
+
+
+class ReplayDraws:
+    """The training crop's draws (``crop_perm``, ``crop_windows``) made
+    once by a seeded ``draws.Draws`` on the CPU and replayed in the same
+    order after ``rewind()``: a step on the card and one on the CPU, or two
+    variants of a step, take the same numbers."""
+
+    def __init__(self, seed):
+        from pointnetgpd_tpu_torch.draws import Draws
+
+        self.src, self.log, self.pos = Draws(seed), [], None
+
+    def rewind(self):
+        self.pos = 0
+        return self
+
+    def _get(self, make):
+        if self.pos is None:
+            self.log.append(make())
+            return self.log[-1]
+        self.pos += 1
+        return self.log[self.pos - 1]
+
+    def crop_perm(self, p):
+        return self._get(lambda: self.src.crop_perm(p))
+
+    def crop_windows(self, count, num_out):
+        return self._get(lambda: self.src.crop_windows(count.cpu(), num_out))
+
+
+def float64_step(torch, model, batch, draws, num_points):
+    """The step's loss and gradients in float64 on the CPU, on the same crop
+    (``draws`` replayed): the reference both float32 steps are held to."""
+    import copy
+
+    from pointnetgpd_tpu_torch.ops.crop import collect_grasp_clouds_batched
+    from pointnetgpd_tpu_torch.training.train import masked_nll_loss
+
+    g, c, t, labels, weights = batch
+    cropped, _, valid = collect_grasp_clouds_batched(g, c, t, draws,
+                                                     num_out=num_points)
+    m64 = copy.deepcopy(model).cpu().double().train()
+    logp = m64(cropped.double())[0]
+    loss = masked_nll_loss(logp, labels, weights.double() * valid)
+    loss.backward()
+    return float(loss), {n: p.grad for n, p in m64.named_parameters()}
+
+
+def compare_steps(torch, name, a, b, ref64):
+    """Two float32 TrainStates after the same step, each against the
+    float64 step ``ref64`` = (loss, grads): the losses within 1e-5 relative
+    of each other; a's largest gradient error (over max|g| of the float64
+    step) at most twice b's plus 1e-4, so a is as exact as b; the biases
+    that a train-mode BatchNorm absorbs (zero in float64) within 1e-3 x
+    max|g| of noise on both; running statistics within 1e-5. Returns the
+    errors (a vs float64, b vs float64, a vs b)."""
+    (sa, ma), (sb, mb) = a, b
+    la, lb = float(ma["loss"]), float(mb["loss"])
+    loss64, g64 = ref64
+    g_max = max(float(g.abs().max()) for g in g64.values())
+    absorbed = {n for n, g in g64.items()
+                if float(g.abs().max()) < 1e-10 * g_max}
+    pa = dict(sa.model.named_parameters())
+    pb = dict(sb.model.named_parameters())
+    err = {"a": (0.0, ""), "b": (0.0, ""), "ab": (0.0, "")}
+    noisy = []
+    for n, g in g64.items():
+        ga, gb = pa[n].grad.double().cpu(), pb[n].grad.double().cpu()
+        if n in absorbed:
+            if max(float(ga.abs().max()), float(gb.abs().max())) > \
+                    1e-3 * g_max:
+                noisy.append(n)
+            continue
+        for k, d in (("a", ga - g), ("b", gb - g), ("ab", ga - gb)):
+            e = float(d.abs().max()) / g_max
+            if e > err[k][0]:
+                err[k] = (e, n)
+    ba = {k: v for k, v in sa.model.state_dict().items() if "running" in k}
+    bb = {k: v for k, v in sb.model.state_dict().items() if "running" in k}
+    e_bn = max(float((ba[k].cpu() - bb[k].cpu()).abs().max()) for k in bb)
+    print(f"{name}: loss {la:.7f} vs {lb:.7f} (rel {abs(la - lb) / lb:.2e}, "
+          f"limit 1e-5; float64 {loss64:.7f}); largest gradient error over "
+          f"max|g| against float64: {err['a'][0]:.2e} ({err['a'][1]}) vs "
+          f"{err['b'][0]:.2e} ({err['b'][1]}), between them "
+          f"{err['ab'][0]:.2e} ({err['ab'][1]}); {len(absorbed)} absorbed "
+          f"biases at noise; BN statistics {e_bn:.2e} (1e-5)", flush=True)
+    if (abs(la - lb) > 1e-5 * abs(lb) or noisy or e_bn > 1e-5
+            or err["a"][0] > 2 * err["b"][0] + 1e-4):
+        fail(f"{name}: steps disagree (noisy {noisy[:4]})")
+    return err["a"][0], err["b"][0], err["ab"][0]
+
+
+def device_busy(torch, prof, skip=()):
+    """(busy us, summed us, the events) of the device activity in a
+    profile: the events that ran on the card (kernels, copies, memsets),
+    not the host ops that launched them and not the ``skip`` labels, which
+    also appear as device-side ranges; busy is the union of their
+    intervals."""
+    from torch.autograd import DeviceType
+
+    dev_events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.key.startswith(skip)]
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in dev_events)
+    busy = total = 0.0
+    end = -float("inf")
+    for a, b in spans:
+        total += b - a
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, total, dev_events
+
+
+def training_phases(torch, card, profile, dev="cuda", batch=128,
+                    cloud=20000):
+    """Phase 8: the trainer at the 1v variant's full width (see the module
+    docstring): TrainConfig's defaults, ``batch`` samples of ``cloud``-point
+    clouds. Returns the K2 numbers at the trainer's eval shape."""
+    import copy
+    import tempfile
+
+    from pointnetgpd_tpu_torch.cli import train as cli
+    from pointnetgpd_tpu_torch.draws import Draws
+    from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
+    from pointnetgpd_tpu_torch.models.pointnet import PointNetCls
+    from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
+    from pointnetgpd_tpu_torch.ops.crop import collect_grasp_clouds_batched
+    from pointnetgpd_tpu_torch.training import train as ttrain
+    from pointnetgpd_tpu_torch.training.data import SyntheticGraspData
+    from pointnetgpd_tpu_torch.training.loop import TrainConfig, Trainer
+
+    dev = torch.device(dev)
+    launch2 = k2._launch
+    with tempfile.TemporaryDirectory() as tmp:
+        # a. fit: 2 epochs x 5 steps, 2 eval batches per epoch
+        cfg = TrainConfig(epochs=2, steps_per_epoch=5, eval_steps=2,
+                          log_interval=5, batch_size=batch, device=dev.type,
+                          model_path=os.path.join(tmp, "m"),
+                          log_dir=os.path.join(tmp, "l"), tag="smoke")
+        n_pts = cfg.grasp_points_num
+        data = SyntheticGraspData(batch, cloud_points=cloud, learnable=True,
+                                  seed=0)
+        held = SyntheticGraspData(batch, cloud_points=cloud, learnable=True,
+                                  seed=1)
+        tr = Trainer(cfg, data, held)
+        before = {k: v.clone() for k, v in tr.state.model.state_dict().items()}
+        rec = []
+
+        def rec2(x, folded):
+            rec.append((x, folded))
+            return launch2(x, folded)
+
+        k2._launch = rec2
+        try:
+            zero_counts()
+            t0 = time.perf_counter()
+            tr.fit()
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            launches = read_counts()
+        finally:
+            k2._launch = launch2
+        losses = [json.loads(ln)["value"] for ln in open(os.path.join(
+            tr.logger.dir, "metrics.jsonl")) if '"train_loss"' in ln]
+        after = tr.state.model.state_dict()
+        finite = all(torch.isfinite(v.float()).all() for v in after.values())
+        moved = [k for k in after if not torch.equal(before[k], after[k])]
+        n_params = sum(1 for k in after if "running" not in k
+                       and "num_batches" not in k)
+        moved_p = sum(1 for k in moved if "running" not in k
+                      and "num_batches" not in k)
+        moved_bn = sum(1 for k in moved if "running" in k)
+        n_eval = cfg.eval_steps * cfg.epochs
+        print(f"training path: Trainer.fit (1v: k={cfg.num_classes}, "
+              f"{n_pts} points, batch {batch}, lr {cfg.lr}, {cloud}-point "
+              f"clouds), {cfg.epochs} epochs x "
+              f"{cfg.steps_per_epoch} steps + {cfg.eval_steps} eval batches "
+              f"each: {fit_s:.2f} s cold, launches {launches}; train losses "
+              f"{[round(v, 4) for v in losses]}; {moved_p} of {n_params} "
+              f"parameters and {moved_bn} running statistics changed; "
+              f"finite {finite}", flush=True)
+        if launches != {"gpg_counts": 0, "pointnet_trunk": 2 * n_eval,
+                        "point_triangle": 0}:
+            fail("the eval pass must launch K2 twice per batch, and the "
+                 "training path K1 and K3 never")
+        if not (finite and np.isfinite(losses).all() and moved_p == n_params
+                and moved_bn > 0):
+            fail("training left non-finite or unchanged parameters")
+        if any(tuple(x.shape) != (batch, n_pts, 3) for x, _ in rec):
+            fail("K2 ran at another shape than the eval batch's")
+
+        # b. K2 at the eval pass's shape against its plain version
+        x_eval, folded = rec[-1]
+        got = launch2(x_eval, folded)
+        want = k2.trunk_reference(x_eval, folded)
+        torch.cuda.synchronize()
+        k2_err = float((got - want).abs().max())
+        if bool(((got - want).abs() > K2_TOL * (1 + want.abs())).any()):
+            fail(f"K2 disagrees with its plain version at {batch}x{n_pts}")
+        w1, b1, w2, b2, w3, b3 = folded
+
+        def library():
+            h = torch.relu(torch.matmul(x_eval, w1) + b1)
+            h = torch.relu(torch.matmul(h, w2) + b2)
+            return torch.amax(torch.matmul(h, w3) + b3, dim=1)
+
+        k2_ms = cuda_ms(torch, lambda: launch2(x_eval, folded), iters=50)
+        k2_plain = cuda_ms(torch, lambda: k2.trunk_reference(x_eval, folded),
+                           iters=20)
+        k2_lib = cuda_ms(torch, library, iters=20)
+        k2_bound = k2_bounds(batch, n_pts)[0]
+        print(f"K2 at the eval pass's ({batch}, {n_pts}), on the last eval "
+              f"batch's "
+              f"feature trunk: max |kernel - plain| = {k2_err:.3e} "
+              f"(1e-4 * (1 + |plain|)); {k2_ms:.4f} ms, plain "
+              f"{k2_plain:.4f} ms, library {k2_lib:.4f} ms, bound "
+              f"{k2_bound:.5f} ms (3xTF32, operations), "
+              f"{100 * k2_bound / k2_ms:.1f}% of it ({card})", flush=True)
+
+        # c. the checkpoint fit wrote loads into the scorer, which then
+        # predicts as evaluate does
+        path = os.path.join(cfg.model_path,
+                            f"step_{cfg.epochs * cfg.steps_per_epoch}")
+        scorer = GraspScorer.from_checkpoint(path, device=dev)
+        g, c, t, lab, w = tr._to_device(held.next_batch())
+        cropped, _, _ = collect_grasp_clouds_batched(
+            g, c, t, Draws(7, dev), num_out=n_pts)
+        with torch.no_grad():
+            want = tr.state.model.eval()(cropped)[0]
+            got = scorer.model(cropped)[0]
+        same = torch.equal(got.argmax(-1), want.argmax(-1))
+        e_ck = float((got - want).abs().max())
+        print(f"checkpoint {os.path.basename(path)} -> GraspScorer."
+              f"from_checkpoint: predictions equal {same}, max |logp err| "
+              f"{e_ck:.2e}", flush=True)
+        if not same or e_ck > 1e-6:
+            fail("the scorer does not reproduce the trained model")
+        tr.close()
+
+        # d. one step on the card against the same step on the CPU
+        torch.manual_seed(0)
+        base = PointNetCls(k=2)
+        batch_np = SyntheticGraspData(batch, cloud_points=cloud,
+                                      learnable=True, seed=5).next_batch()
+        step = ttrain.make_fused_train_step(num_points=n_pts)
+        draws = ReplayDraws(11)
+        out = {}
+        for where in ("cpu", dev.type):
+            model = copy.deepcopy(base).to(where)
+            st = ttrain.init_train_state(model, ttrain.make_optimizer(0.005))
+            args = [torch.as_tensor(a).to(where) for a in batch_np]
+            args[3], args[4] = args[3].long(), args[4].float()
+            out[where] = step(st, *args, draws)
+            draws.rewind()
+            if where == "cpu":
+                ref64 = float64_step(torch, base, args, draws, n_pts)
+                draws.rewind()
+        compare_steps(torch, "train step, card vs CPU (same weights and "
+                      "draws)", out[dev.type], out["cpu"], ref64)
+        batch_d = [torch.as_tensor(a).to(dev) for a in batch_np]
+        batch_d[3], batch_d[4] = batch_d[3].long(), batch_d[4].float()
+        st_f = ttrain.init_train_state(copy.deepcopy(base).to(dev),
+                                       ttrain.make_optimizer(0.005))
+        fused = ttrain.make_fused_train_step(num_points=n_pts,
+                                             fused_maxpool=True)
+        compare_steps(torch, "fused_maxpool step vs the unfused one on the "
+                      "card", fused(st_f, *batch_d, draws.rewind()),
+                      out[dev.type], ref64)
+
+        # e. the other variants through the CLI, on the card by default
+        for variant in ("1v_mc", "1v_gpd"):
+            t0 = time.perf_counter()
+            argv = ["--variant", variant, "--mode", "train", "--synthetic",
+                    "--epoch", "1", "--steps-per-epoch", "1",
+                    "--eval-steps", "1", "--batch-size", str(batch),
+                    "--cloud-points", str(cloud),
+                    "--model-path", os.path.join(tmp, variant),
+                    "--log-dir", os.path.join(tmp, "l")]
+            # on the card by default: --device only where it is not
+            rc = cli.main(argv if dev.type == "cuda" else
+                          argv + ["--device", dev.type])
+            torch.cuda.synchronize()
+            sd = torch.load(os.path.join(tmp, variant, "step_1", "model.pt"))
+            k = (sd["fc3.weight"] if "fc3.weight" in sd
+                 else sd["fc2.weight"]).shape[0]
+            ok = rc == 0 and all(torch.isfinite(v.float()).all()
+                                 for v in sd.values())
+            print(f"cli.train --variant {variant} --mode train --synthetic "
+                  f"(1 step + 1 eval batch, batch {batch}): rc {rc}, {k} "
+                  f"classes, finite {ok}, {time.perf_counter() - t0:.2f} s "
+                  f"cold", flush=True)
+            if not ok:
+                fail(f"the {variant} variant did not train")
+
+        # f. timings: warm steps, CUDA events over 10 steps each
+        timing = {}
+        for name, kw in (("fp32", {}),
+                         ("bf16", {"compute_dtype": torch.bfloat16}),
+                         ("fused_maxpool", {"fused_maxpool": True})):
+            st = ttrain.init_train_state(copy.deepcopy(base).to(dev),
+                                         ttrain.make_optimizer(0.005))
+            fn = ttrain.make_fused_train_step(num_points=n_pts, **kw)
+            d = Draws(3, dev)
+            torch.cuda.reset_peak_memory_stats()
+            timing[name] = cuda_ms(torch, lambda: fn(st, *batch_d, d),
+                                   iters=10, warm=2)
+            timing[name + "_mem"] = torch.cuda.max_memory_allocated()
+        gcfg = cli.VARIANTS["1v_gpd"]
+        gtr = Trainer(TrainConfig(gpd=True, lr=gcfg["lr"], batch_size=batch,
+                                  device=dev.type,
+                                  log_dir=os.path.join(tmp, "l"),
+                                  model_path=os.path.join(tmp, "g")), data)
+        d = Draws(4, dev)
+        timing["gpd"] = cuda_ms(torch, lambda: gtr.train_step(
+            gtr.state, *batch_d, d), iters=3, warm=1)
+        gtr.close()
+        print(f"timings on {card}:", flush=True)
+        for name in ("fp32", "bf16", "fused_maxpool"):
+            print(f"  train step, {name}: {timing[name]:.2f} ms warm per "
+                  f"step (CUDA events, 10 steps, crop + forward + backward "
+                  f"+ Adam), {batch * 1e3 / timing[name]:.0f} samples/s, peak "
+                  f"{timing[name + '_mem'] / 2**30:.2f} GiB allocated "
+                  f"({card})")
+        print(f"  GPD train step (1v_gpd, batch {batch}, {n_pts} points, "
+              f"3 channels): {timing['gpd']:.2f} ms warm per step (CUDA "
+              f"events, 3 steps) ({card})", flush=True)
+
+        if profile:
+            from torch.autograd.profiler import record_function
+            from torch.profiler import ProfilerActivity, profile as prof_ctx
+
+            st = ttrain.init_train_state(copy.deepcopy(base).to(dev),
+                                         ttrain.make_optimizer(0.005))
+            fn = ttrain.make_fused_train_step(num_points=n_pts)
+            ev = ttrain.make_eval_step()
+            d = Draws(5, dev)
+            fn(st, *batch_d, d)
+            torch.cuda.synchronize()
+            with prof_ctx(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                fn(st, *batch_d, d)
+                with record_function("eval.crop"):
+                    cropped, _, valid = collect_grasp_clouds_batched(
+                        *batch_d[:3], d, num_out=n_pts)
+                ev(st.model, cropped, batch_d[3], batch_d[4] * valid)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e6
+            busy, total, evs = device_busy(torch, prof, skip=("train.",
+                                                              "eval."))
+            print(f"profile (one train step + one eval batch, {card}): "
+                  f"wall {wall / 1e3:.2f} ms, device busy {busy / 1e3:.3f} "
+                  f"ms ({100 * busy / wall:.1f}%; {len(evs)} device events, "
+                  f"{total / 1e3:.3f} ms summed)")
+            for e in sorted(prof.key_averages(), key=lambda e: e.key):
+                if e.key.split(".")[0] in ("train", "eval") \
+                        and e.cpu_time_total > 0:
+                    print(f"  span {e.key}: host {e.cpu_time_total / 1e3:.2f}"
+                          f" ms")
+    print(flush=True)
+    return {"eval_launches": launches["pointnet_trunk"], "ms": k2_ms,
+            "plain_ms": k2_plain, "library_ms": k2_lib, "bound_ms": k2_bound,
+            "err": k2_err}
+
+
 def main():
     import torch
 
@@ -1031,18 +1493,6 @@ def main():
             torch, lambda: k2.trunk_reference(x, folded), iters=20)
         timing[f"k2_library_{name}"] = cuda_ms(torch, lambda: library(x),
                                                iters=20)
-    def k2_bounds(b, n):
-        """(3xTF32 tensor-core bound, all-fp32 CUDA-core bound) in ms: the
-        larger of operations and bytes (inputs and weights read once, the
-        (B, 1024) output written once)."""
-        l1 = 2.0 * b * n * 3 * 64
-        l23 = 2.0 * b * n * (64 * 128 + 128 * 1024)
-        nbytes = (b * n * 3 + 3 * 64 + 64 + 64 * 128 + 128 + 128 * 1024
-                  + 1024 + b * 1024) * 4
-        mem = nbytes / PEAK_BYTES
-        return (max(3 * l23 / PEAK_TF32_FLOPS + l1 / PEAK_FP32_FLOPS, mem)
-                * 1e3, max((l1 + l23) / PEAK_FP32_FLOPS, mem) * 1e3)
-
     k2_bound = k2_bounds(*x_det.shape[:2])[0]
 
     torch.cuda.synchronize()
@@ -1081,8 +1531,15 @@ def main():
     if "--profile" in sys.argv:
         profile_frames(torch, det, pts, cam, card)
 
-    # 7. the voxelizer path
+    # 7. the voxelizer path; 7f. K3 above the old cap
     k3_entry = voxelizer_phases(torch, card)
+    k3_above_cap(torch, card)
+
+    # 8. the training path
+    train = training_phases(torch, card, "--profile" in sys.argv)
+    print(f"kernel launches by path: frame {launches['pointnet_trunk']} K2 "
+          f"(3 frames), training eval {train['eval_launches']} K2 (4 eval "
+          f"batches)", flush=True)
 
     kernels = [
         {"name": "gpg_counts", "route": "cuda",

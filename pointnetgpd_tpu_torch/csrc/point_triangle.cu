@@ -37,7 +37,13 @@
 //   memory with the supertile index as tie break (a bitonic sort), and the
 //   block takes supertiles in that order until the first bound >= cur =
 //   sqrt(max over the block of the running min d^2). The head of the order
-//   is the TPU kernel's "nearest supertile first";
+//   is the TPU kernel's "nearest supertile first". Above SORT_CHUNK
+//   supertiles the keys do not fit: the block walks them in chunks of
+//   SORT_CHUNK, the chunk holding its nearest supertile first and then the
+//   others in index order, each sorted in the same buffer and walked until
+//   its first bound >= cur (a chunk whose least bound is >= cur is not
+//   sorted at all). At most SORT_CHUNK supertiles there is one chunk and
+//   the walk is the single sorted one;
 // - a per-warp triangle reject: before a staged supertile is evaluated, each
 //   lane tests four triangles: the distance from a triangle's sphere centre
 //   to its warp's slab box, less the radius, against the warp's own running
@@ -64,8 +70,7 @@
 #define NW (BP / 32)         // warps per block
 #define SUPER 128            // triangles per supertile: one per thread
 #define TRI_F4 6             // float4 per staged triangle
-#define MAX_SORT 16384       // most supertiles the sort holds (128 KB of
-                             // keys): meshes of up to 2,097,152 triangles
+#define SORT_CHUNK 16384     // supertiles sorted at a time (128 KB of keys)
 #define EPS 1e-30f
 #define FULL 0xffffffffu
 
@@ -232,56 +237,32 @@ __device__ __forceinline__ float pair_d2(float px, float py, float pz,
   return rx * rx + ry * ry + rz * rz;
 }
 
-__global__ void __launch_bounds__(BP)
-point_triangle_kernel(const float* __restrict__ pts, const float4* __restrict__ tri,
-                      const float* __restrict__ sup, int n_sup, int n_pad,
-                      float* __restrict__ out, int* __restrict__ stats) {
-  extern __shared__ u64 keys[];                  // (bound, index), n_pad
-  __shared__ float4 tri_s[SUPER * TRI_F4];       // the staged supertile
-  __shared__ float4 sph_s[SUPER];                // its triangles' spheres
-  __shared__ float red6[NW][6];
-  __shared__ float red[NW];
-
-  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
-  // a block's point (ix, iy, iz) of its 4x4x8 cells sits at ix*32 + iy*8 +
-  // iz; warp wid holds a compact 2x4x4 slab of them
-  const int ix = 2 * (wid >> 1) + (lane >> 4), iz = 4 * (wid & 1) + (lane & 3);
-  const long long p = (long long)blockIdx.x * BP + ix * 32 + ((lane >> 2) & 3) * 8 + iz;
-  const float px = pts[p * 3 + 0], py = pts[p * 3 + 1], pz = pts[p * 3 + 2];
-  float m = INFINITY;
-
-  // the warp's slab (centre, half-extents) and the block's box (centre,
-  // half-diagonal)
-  float bb[6] = {px, py, pz, px, py, pz};
-  warp_bbox(bb);
-  const float4 slab = box_sphere(bb);
-  const float hx = 0.5f * (bb[3] - bb[0]), hy = 0.5f * (bb[4] - bb[1]);
-  const float hz = 0.5f * (bb[5] - bb[2]);
-  if (lane == 0)
-    for (int i = 0; i < 6; ++i) red6[wid][i] = bb[i];
-  __syncthreads();
-  for (int w = 0; w < NW; ++w)
-    for (int i = 0; i < 3; ++i) {
-      bb[i] = fminf(bb[i], red6[w][i]);
-      bb[3 + i] = fmaxf(bb[3 + i], red6[w][3 + i]);
-    }
-  const float4 blk = box_sphere(bb);
-
-  // the block's lower bound to each supertile, as sortable keys
-  for (int s = t; s < n_pad; s += BP) {
+// the block's keys (bound, index) of supertiles s0 .. s0 + len - 1 in
+// keys[0 .. pad), padded with ~0, and their least key in *kmin
+__device__ __forceinline__ void fill_keys(u64* keys, u64* kmin, const float* __restrict__ sup,
+                                          float4 blk, int s0, int len, int pad, int t) {
+  u64 lo = ~0ull;
+  for (int i = t; i < pad; i += BP) {
     u64 key = ~0ull;
-    if (s < n_sup) {
+    if (i < len) {
+      const int s = s0 + i;
       const float4 sp = *reinterpret_cast<const float4*>(sup + (long long)s * 8);
       const float dx = sp.x - blk.x, dy = sp.y - blk.y, dz = sp.z - blk.z;
       const float d = sqrtf(dx * dx + dy * dy + dz * dz) - sp.w - blk.w;
       key = ((u64)ordered_bits(d) << 32) | (unsigned)s;
     }
-    keys[s] = key;
+    keys[i] = key;
+    lo = key < lo ? key : lo;
   }
+  if (kmin != nullptr) atomicMin(kmin, lo);
   __syncthreads();
-  for (int k = 2; k <= n_pad; k <<= 1)             // bitonic sort, ascending
+}
+
+// bitonic sort of keys[0 .. pad), ascending; pad a power of two
+__device__ __forceinline__ void sort_keys(u64* keys, int pad, int t) {
+  for (int k = 2; k <= pad; k <<= 1)
     for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = t; i < n_pad; i += BP) {
+      for (int i = t; i < pad; i += BP) {
         const int l = i ^ j;
         if (l > i) {
           const u64 a = keys[i], b = keys[l];
@@ -290,10 +271,18 @@ point_triangle_kernel(const float* __restrict__ pts, const float4* __restrict__ 
       }
       __syncthreads();
     }
+}
 
-  float cur = INFINITY;      // block: sqrt(max of the running min d^2)
-  float wmax = INFINITY;     // warp: max of its points' running min d^2
-  int visited = 0, pairs = 0;
+// walk a sorted chunk keys[0 .. len): take supertiles until the first
+// bound >= cur (the first of the first chunk unconditionally), each staged
+// in shared memory and evaluated by the per-warp reject and pair body
+__device__ __forceinline__ void walk(const u64* keys, int len, bool first,
+                                     const float4* __restrict__ tri, float4* tri_s,
+                                     float4* sph_s, float* red, int t, float px, float py,
+                                     float pz, float4 slab, float hx, float hy, float hz,
+                                     float& m, float& cur, float& wmax, int& visited,
+                                     int& pairs) {
+  const int lane = t & 31, wid = t >> 5;
   for (int k = 0;; ++k) {
     __syncthreads();                   // tri_s readers done, red published
     if (k > 0) {
@@ -302,9 +291,9 @@ point_triangle_kernel(const float* __restrict__ pts, const float4* __restrict__ 
       for (int w = 1; w < NW; ++w) mx = fmaxf(mx, red[w]);
       cur = sqrtf(mx);
     }
-    if (k >= n_sup) break;
+    if (k >= len) break;
     const u64 key = keys[k];
-    if (k > 0 && key_bound(key) >= cur) break;
+    if ((k > 0 || !first) && key_bound(key) >= cur) break;
     const int s = (int)(unsigned)key;
     stage_triangle(tri, (long long)s * SUPER + t, tri_s + t * TRI_F4, sph_s + t);
     __syncthreads();
@@ -333,6 +322,81 @@ point_triangle_kernel(const float* __restrict__ pts, const float4* __restrict__ 
     wmax = warp_max(m);
     if (lane == 0) red[wid] = wmax;
   }
+}
+
+// CHUNKED: more than SORT_CHUNK supertiles. The single-chunk instance
+// carries none of the chunk bookkeeping, so it keeps the registers of the
+// single sorted walk
+template <bool CHUNKED>
+__global__ void __launch_bounds__(BP)
+point_triangle_kernel(const float* __restrict__ pts, const float4* __restrict__ tri,
+                      const float* __restrict__ sup, int n_sup, int n_pad,
+                      float* __restrict__ out, int* __restrict__ stats) {
+  extern __shared__ u64 keys[];                  // (bound, index) of a chunk
+  __shared__ float4 tri_s[SUPER * TRI_F4];       // the staged supertile
+  __shared__ float4 sph_s[SUPER];                // its triangles' spheres
+  __shared__ float red6[NW][6];
+  __shared__ float red[NW];
+  __shared__ u64 kmin;                           // least key of a chunk
+
+  const int t = threadIdx.x, lane = t & 31, wid = t >> 5;
+  // a block's point (ix, iy, iz) of its 4x4x8 cells sits at ix*32 + iy*8 +
+  // iz; warp wid holds a compact 2x4x4 slab of them
+  const int ix = 2 * (wid >> 1) + (lane >> 4), iz = 4 * (wid & 1) + (lane & 3);
+  const long long p = (long long)blockIdx.x * BP + ix * 32 + ((lane >> 2) & 3) * 8 + iz;
+  const float px = pts[p * 3 + 0], py = pts[p * 3 + 1], pz = pts[p * 3 + 2];
+  float m = INFINITY;
+
+  // the warp's slab (centre, half-extents) and the block's box (centre,
+  // half-diagonal)
+  float bb[6] = {px, py, pz, px, py, pz};
+  warp_bbox(bb);
+  const float4 slab = box_sphere(bb);
+  const float hx = 0.5f * (bb[3] - bb[0]), hy = 0.5f * (bb[4] - bb[1]);
+  const float hz = 0.5f * (bb[5] - bb[2]);
+  if (lane == 0)
+    for (int i = 0; i < 6; ++i) red6[wid][i] = bb[i];
+  if (CHUNKED && t == 0) kmin = ~0ull;
+  __syncthreads();
+  for (int w = 0; w < NW; ++w)
+    for (int i = 0; i < 3; ++i) {
+      bb[i] = fminf(bb[i], red6[w][i]);
+      bb[3 + i] = fmaxf(bb[3 + i], red6[w][3 + i]);
+    }
+  const float4 blk = box_sphere(bb);
+
+  float cur = INFINITY;      // block: sqrt(max of the running min d^2)
+  float wmax = INFINITY;     // warp: max of its points' running min d^2
+  int visited = 0, pairs = 0;
+  if (!CHUNKED) {            // the block's lower bound to each supertile
+    fill_keys(keys, nullptr, sup, blk, 0, n_sup, n_pad, t);
+    sort_keys(keys, n_pad, t);
+    walk(keys, n_sup, true, tri, tri_s, sph_s, red, t, px, py, pz, slab, hx, hy, hz, m,
+         cur, wmax, visited, pairs);
+  } else {
+    // chunks of SORT_CHUNK supertiles: the one holding the nearest
+    // supertile first (its key is the least over all of them), then index
+    // order
+    const int n_chunks = (n_sup + SORT_CHUNK - 1) / SORT_CHUNK;
+    for (int c = 0; c < n_chunks; ++c)
+      fill_keys(keys, &kmin, sup, blk, c * SORT_CHUNK, min(SORT_CHUNK, n_sup - c * SORT_CHUNK),
+                SORT_CHUNK, t);
+    const int c_first = (int)(unsigned)kmin / SORT_CHUNK;
+    for (int ci = 0; ci < n_chunks; ++ci) {
+      const int c = ci == 0 ? c_first : (ci <= c_first ? ci - 1 : ci);
+      const int s0 = c * SORT_CHUNK, len = min(SORT_CHUNK, n_sup - s0);
+      int pad = 1;
+      while (pad < len) pad <<= 1;
+      __syncthreads();               // the last chunk's keys and kmin are read
+      if (t == 0) kmin = ~0ull;
+      __syncthreads();
+      fill_keys(keys, &kmin, sup, blk, s0, len, pad, t);
+      if (ci > 0 && key_bound(kmin) >= cur) continue;   // no supertile can win
+      sort_keys(keys, pad, t);
+      walk(keys, len, ci == 0, tri, tri_s, sph_s, red, t, px, py, pz, slab, hx, hy, hz, m,
+           cur, wmax, visited, pairs);
+    }
+  }
   out[p] = m;
   if (stats != nullptr) {
     // supertiles visited; (point, triangle) pairs evaluated
@@ -341,21 +405,30 @@ point_triangle_kernel(const float* __restrict__ pts, const float4* __restrict__ 
   }
 }
 
+template <bool CHUNKED>
+static int launch(const float* pts, int n_blocks, const float* tri, const float* sup,
+                  int n_sup, float* out, int* stats, cudaStream_t stream) {
+  int n_pad = 1;
+  while (n_pad < n_sup && n_pad < SORT_CHUNK) n_pad <<= 1;
+  const size_t smem = (size_t)n_pad * sizeof(u64);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        point_triangle_kernel<CHUNKED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  point_triangle_kernel<CHUNKED><<<n_blocks, BP, smem, stream>>>(
+      pts, reinterpret_cast<const float4*>(tri), sup, n_sup, n_pad, out, stats);
+  return (int)cudaGetLastError();
+}
+
 // stats: null, or (n_blocks, 2) int32 zeros that receive per block the
 // supertiles visited and the (point, triangle) pairs evaluated
 extern "C" int point_triangle_launch(const float* pts, int n_blocks, const float* tri,
                                      const float* sup, int n_sup, float* out,
                                      int* stats, void* stream) {
-  if (n_blocks < 1 || n_sup < 1 || n_sup > MAX_SORT) return (int)cudaErrorInvalidValue;
-  int n_pad = 1;
-  while (n_pad < n_sup) n_pad <<= 1;
-  const size_t smem = (size_t)n_pad * sizeof(u64);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        point_triangle_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  point_triangle_kernel<<<n_blocks, BP, smem, (cudaStream_t)stream>>>(
-      pts, reinterpret_cast<const float4*>(tri), sup, n_sup, n_pad, out, stats);
-  return (int)cudaGetLastError();
+  if (n_blocks < 1 || n_sup < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return n_sup > SORT_CHUNK ? launch<true>(pts, n_blocks, tri, sup, n_sup, out, stats, s)
+                            : launch<false>(pts, n_blocks, tri, sup, n_sup, out, stats, s);
 }

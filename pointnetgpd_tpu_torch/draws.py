@@ -1,4 +1,4 @@
-"""Every random draw on the online frame path, in one place.
+"""Every random draw of the port, in one place.
 
 JAX's counter-based PRNG cannot be reproduced in torch, so the port never
 draws inline: each consumer asks a ``Draws`` object for the numbers it needs,
@@ -21,6 +21,16 @@ The draws, with the JAX package's line that makes them:
   top-k crop (``ops/crop.py:376``).
 - ``resample(n, num_points, p_in)``: (n, num_points) scorer resample indices
   in ``[0, p_in)`` (``inference/scorer.py:70-77``).
+- ``per_sample(n)``: a source whose row i of ``crop_keys`` and
+  ``crop_ranks`` is drawn for sample i alone, as the JAX package's per-sample
+  crops of the GPD baseline draw them from ``split(key, n)``
+  (``training/train.py:243-245``); the default source's rows are
+  independent already, so it returns itself.
+- ``dropout_keep(shape)``: a bool keep mask, p = 0.5 (``models/gpd.py:69-72``).
+
+The trainer takes one ``Draws`` for its crops; its model draws nothing
+else (PointNet has no dropout, and the GPD baseline trains without it, as
+in the JAX package).
 """
 
 from __future__ import annotations
@@ -64,3 +74,9 @@ class Draws:
     def resample(self, n: int, num_points: int, p_in: int):
         return torch.randint(0, p_in, (n, num_points), generator=self.gen,
                              device=self.device)
+
+    def per_sample(self, n: int):
+        return self
+
+    def dropout_keep(self, shape):
+        return self._rand(*shape) < 0.5

@@ -1,0 +1,145 @@
+"""Online GPD-baseline scorer: crop + normals + projection + CNN.
+
+Port of ``pointnetgpd_tpu/inference/gpd_scorer.py``. A trained
+``GPDClassifier`` scores GPG candidates through the same per-scene shape as
+``inference.scorer.GraspScorer``: the closing-region crop
+(kinect2grasp.py:216-233 box), k-NN normals with the camera along -approach,
+60x60 projection features (dataset.py:88-120), the CNN, and softmax on its
+log_softmax (main_test.py:65-66, kept as in the PointNet scorer). The GPD
+baseline is 2-class; "good" is class 1. Random numbers come from a
+``draws.Draws``-like object.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..draws import Draws
+from ..ops.cloud import estimate_normals_knn
+from ..ops.crop import collect_candidate_clouds
+from ..ops.projection import gpd_projection_features
+from .scorer import PendingScore, _round_up, _to_host
+
+CAMERA = (-1.0, 0.0, 0.0)      # along -approach, in the gripper frame
+
+
+def gpd_features(clouds, widths, *, project_chann: int, knn_k: int = 30):
+    """Cropped gripper-frame clouds (G, N, 3) and gripper widths (G,) ->
+    (G, 60, 60, C) projection features over k-NN normals."""
+    n = clouds.shape[1]
+    normals = estimate_normals_knn(clouds, torch.tensor(CAMERA), k=knn_k,
+                                   chunk=min(256, n))
+    valid = torch.ones(clouds.shape[:2], dtype=torch.bool,
+                       device=clouds.device)
+    return gpd_projection_features(clouds, normals, valid, widths,
+                                   project_chann=project_chann)
+
+
+@torch.no_grad()
+def score_candidates_gpd(model, pc, cand_frames, valid_in, hand_depth, width,
+                         draws, *, num_points: int = 500,
+                         project_chann: int = 3, min_points: int = 50,
+                         knn_k: int = 30):
+    """Whole-scene GPD scoring. Returns (pred, prob, counts, valid, good,
+    order) with the semantics of ``scorer.score_candidates_fused``."""
+    clouds, counts, valid = collect_candidate_clouds(
+        cand_frames[:, 0], cand_frames[:, 1], cand_frames[:, 2],
+        cand_frames[:, 3], pc, hand_depth, width, draws,
+        num_out=num_points, min_point_limit=min_points)
+    valid = valid & valid_in
+    widths = torch.full((clouds.shape[0],), float(width),
+                        dtype=clouds.dtype, device=clouds.device)
+    feats = gpd_features(clouds, widths, project_chann=project_chann,
+                         knn_k=knn_k)
+    probs = F.softmax(model(feats), dim=-1)          # deployed quirk
+    pred = torch.where(valid, probs.argmax(dim=-1), 0)
+    probs = torch.where(valid[:, None], probs, 0.0)
+    score = probs[:, 1]
+    good = (pred == 1) & valid
+    order = torch.argsort(torch.where(good, -score, torch.inf), stable=True)
+    return pred, probs, counts, valid, good, order
+
+
+@dataclass
+class GPDScorer:
+    """``GraspScorer`` counterpart for the GPD projection-CNN baseline."""
+
+    model: Any
+    project_chann: int = 3
+    num_points: int = 500
+    pad_to: int = 64
+    min_points: int = 50
+    knn_k: int = 30
+    device: Any = "cuda"
+
+    def __post_init__(self):
+        self.device = torch.device(self.device)
+        self.model = self.model.to(self.device).eval()
+
+    def score_candidates(self, pc, candidates, hand_depth, width,
+                         seed: int = 0, valid=None, extra_fetch=None,
+                         draws=None):
+        return self.collect(self.dispatch_candidates(
+            pc, candidates, hand_depth, width, seed=seed, valid=valid,
+            extra_fetch=extra_fetch, draws=draws))
+
+    def dispatch_candidates(self, pc, candidates, hand_depth, width,
+                            seed: int = 0, valid=None, extra_fetch=None,
+                            draws=None):
+        """Enqueue the scoring on the device; returns a ``PendingScore``."""
+        dev = self.device
+        cand = torch.as_tensor(np.asarray(candidates, np.float32) if not
+                               isinstance(candidates, torch.Tensor)
+                               else candidates).reshape(-1, 5, 3).to(
+                                   dev, torch.float32)
+        g = cand.shape[0]
+        if g == 0:
+            empty = {"pred": np.zeros((0,), np.int64),
+                     "prob": np.zeros((0, 2), np.float32),
+                     "score": np.zeros((0,), np.float32),
+                     "counts": np.zeros((0,), np.int64),
+                     "valid": np.zeros((0,), bool),
+                     "good_indices": np.zeros((0,), np.int64)}
+            return PendingScore(out=None, extra_fetch=extra_fetch, g=0,
+                                empty=empty)
+        g_pad = max(_round_up(g, self.pad_to), self.pad_to)
+        pad_frame = torch.zeros((g_pad - g, 5, 3), device=dev)
+        pad_frame[:, 1, 0] = 1.0
+        pad_frame[:, 2, 1] = 1.0
+        pad_frame[:, 3, 2] = 1.0
+        valid_in = torch.arange(g_pad, device=dev) < g
+        if valid is not None:
+            v = torch.as_tensor(np.asarray(valid, bool) if not isinstance(
+                valid, torch.Tensor) else valid).to(dev, torch.bool)
+            valid_in = valid_in & torch.cat(
+                [v, torch.zeros((g_pad - g,), dtype=torch.bool, device=dev)])
+        pc_d = torch.as_tensor(np.asarray(pc, np.float32) if not isinstance(
+            pc, torch.Tensor) else pc).to(dev, torch.float32)
+        out = score_candidates_gpd(
+            self.model, pc_d, torch.cat([cand, pad_frame]), valid_in,
+            float(hand_depth), float(width), draws or Draws(seed, dev),
+            num_points=self.num_points, project_chann=self.project_chann,
+            min_points=self.min_points, knn_k=self.knn_k)
+        return PendingScore(out=out, extra_fetch=extra_fetch, g=g)
+
+    def collect(self, pending: PendingScore):
+        """Copy the result (and the caller's extras) to the host."""
+        if pending.out is None:
+            if pending.extra_fetch is not None:
+                return pending.empty, _to_host(pending.extra_fetch)
+            return pending.empty
+        g = pending.g
+        pred, prob, counts, valid, good, order = _to_host(pending.out)
+        pred, prob, counts = pred[:g], prob[:g], counts[:g]
+        valid, good = valid[:g], good[:g]
+        order = order[(order < g) & good[np.minimum(order, g - 1)]][:g]
+        result = {"pred": pred, "prob": prob, "score": prob[:, 1],
+                  "counts": counts, "valid": valid, "good_indices": order}
+        if pending.extra_fetch is not None:
+            return result, _to_host(pending.extra_fetch)
+        return result

@@ -1,25 +1,31 @@
 """Carry weights into the port's modules.
 
 - ``state_dict_from_jax(params, state)``: the JAX package's param/state
-  pytrees (as numpy arrays) -> the port's state_dict. Rules mirror
-  ``pointnetgpd_tpu/models/convert.py`` in reverse: ``w`` (O, I) of a
-  ``conv*`` layer -> Conv1d ``weight`` (O, I, 1), of a Linear -> ``weight``;
+  pytrees (as numpy arrays) -> the port's state_dict, for every model of
+  the family (PointNetCls, DualPointNetCls, PointNetDenseCls, GPDClassifier).
+  Rules mirror ``pointnetgpd_tpu/models/convert.py`` in reverse: ``w``
+  (O, I) of a ``conv*`` layer -> Conv1d ``weight`` (O, I, 1), ``w`` (H, W,
+  I, O) of a Conv2d -> ``weight`` (O, I, H, W), of a Linear -> ``weight``;
   ``b`` -> ``bias``; BN params ``scale``/``bias`` -> ``weight``/``bias``; BN
   state ``mean``/``var`` -> ``running_mean``/``running_var``.
 - ``load_reference_checkpoint(path)``: a reference checkpoint — a pickled
   whole module (``torch.save(model)``, reference PointNetGPD/main_1v.py:178),
-  a plain state_dict, or an ``.npz`` of one — as a state_dict.
+  a plain state_dict, an ``.npz`` of one, or a training checkpoint
+  directory of the port (``training/checkpoint.py``) — as a state_dict.
 - ``pointnet_cls_from_state_dict``: build a ``PointNetCls`` sized from it.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
 import torch
 
 from .pointnet import PointNetCls
+
+MODEL_FILE = "model.pt"    # the state_dict inside a training checkpoint
 
 
 def state_dict_from_jax(params, state) -> dict:
@@ -37,7 +43,9 @@ def state_dict_from_jax(params, state) -> dict:
             layer = ".".join(prefix)
             if name == "w":
                 w = tensor(leaf)
-                if prefix[-1].startswith("conv"):
+                if w.dim() == 4:                   # Conv2d HWIO -> OIHW
+                    w = w.permute(3, 2, 0, 1).contiguous()
+                elif prefix[-1].startswith("conv"):
                     w = w[:, :, None]
                 sd[f"{layer}.weight"] = w
             elif name == "b":
@@ -73,6 +81,8 @@ def load_reference_checkpoint(path, ref_paths=()) -> dict:
     ``ref_paths`` go on ``sys.path`` so a pickled module's classes
     (``model.pointnet.PointNetCls``) resolve."""
     path = str(path)
+    if os.path.isdir(path):                       # a training checkpoint
+        path = os.path.join(path, MODEL_FILE)
     if path.endswith(".npz"):
         with np.load(path) as z:
             return {k: torch.from_numpy(np.array(z[k])) for k in z.files}

@@ -1,17 +1,27 @@
 """Layer helpers with the JAX package's channels-last semantics.
 
-Port of ``pointnetgpd_tpu/models/layers.py``, eval mode only (training comes
-in a later slice). The modules themselves are ``torch.nn`` Conv1d, Linear and
-BatchNorm1d under the reference's names, so reference state_dicts load with
-plain ``load_state_dict`` (BatchNorm eps 1e-5, torch's default); these
-functions apply them to channels-last ``(..., C)`` activations the way the
-JAX functions do.
+Port of ``pointnetgpd_tpu/models/layers.py``. The modules themselves are
+``torch.nn`` Conv1d, Linear and BatchNorm1d under the reference's names, so
+reference state_dicts load with plain ``load_state_dict`` (BatchNorm eps
+1e-5, momentum 0.1, torch's defaults); these functions apply them to
+channels-last ``(..., C)`` activations the way the JAX functions do:
+
+- ``batchnorm_eval``: the running statistics, in the JAX order
+  ``(x - mean) * rsqrt(var + eps) * scale + bias``;
+- ``batchnorm_train``: the batch statistics over every axis but the channel
+  axis, normalizing with the biased variance and moving the running
+  variance toward the unbiased one (``layers.py:68-100``); for inputs below
+  float32 the statistics are taken in float32. The running statistics are
+  updated in place, outside autograd, as ``nn.BatchNorm1d`` does.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def linear(layer, x):
@@ -29,5 +39,36 @@ def batchnorm_eval(bn: nn.BatchNorm1d, x):
     return y * bn.weight + bn.bias
 
 
-def linear_bn_relu(layer, bn, x):
-    return torch.relu(batchnorm_eval(bn, linear(layer, x)))
+@torch.no_grad()
+def update_running_stats(bn: nn.BatchNorm1d, mean, var_biased, n: int):
+    """Move ``bn``'s running statistics toward a batch's ``mean`` and the
+    unbiased form of its biased variance over ``n`` elements."""
+    unbiased = var_biased * (n / max(n - 1, 1))
+    bn.running_mean.copy_((1.0 - BN_MOMENTUM) * bn.running_mean
+                          + BN_MOMENTUM * mean.to(bn.running_mean.dtype))
+    bn.running_var.copy_((1.0 - BN_MOMENTUM) * bn.running_var
+                         + BN_MOMENTUM * unbiased.to(bn.running_var.dtype))
+    bn.num_batches_tracked.add_(1)
+
+
+def batchnorm_train(bn: nn.BatchNorm1d, x):
+    """Train-mode BatchNorm over every axis but the last: normalize with
+    the batch's mean and biased variance (differentiable), and update the
+    running statistics in place. Returns x's dtype."""
+    axes = tuple(range(x.dim() - 1))
+    xf = x if x.dtype in (torch.float32, torch.float64) else x.float()
+    var, mean = torch.var_mean(xf, dim=axes, correction=0)
+    n = x.numel() // x.shape[-1]
+    update_running_stats(bn, mean.detach(), var.detach(), n)
+    # centered first: a form y = a x + k would differentiate through
+    # sum(g x) - mean sum(g), which cancels where |mean| >> std
+    a = torch.rsqrt(var + bn.eps).to(x.dtype) * bn.weight.to(x.dtype)
+    return torch.addcmul(bn.bias.to(x.dtype), x - mean.to(x.dtype), a)
+
+
+def batchnorm(bn: nn.BatchNorm1d, x, *, train: bool):
+    return batchnorm_train(bn, x) if train else batchnorm_eval(bn, x)
+
+
+def linear_bn_relu(layer, bn, x, *, train: bool = False):
+    return torch.relu(batchnorm(bn, linear(layer, x), train=train))

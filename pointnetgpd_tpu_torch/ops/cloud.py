@@ -187,19 +187,23 @@ def _orient(normals, points, camera_pos):
 def estimate_normals_knn(points, camera_pos, *, k: int = 30,
                          chunk: int = 1024):
     """Per-point normals by exact k-NN plane fitting, flipped toward the
-    camera. points (P, 3); camera_pos (3,). Query chunks bound memory."""
-    p_total = points.shape[0]
+    camera. points (P, 3), or (B, P, 3) for B clouds at once; camera_pos
+    (3,). Query chunks bound memory."""
+    p_total = points.shape[-2]
     k = min(k, p_total)
     if k == 0:
-        return torch.zeros((0, 3), dtype=points.dtype, device=points.device)
-    p_sq = sumsq3(points)
+        return torch.zeros_like(points)
+    pts = points if points.dim() == 3 else points[None]
+    bi = torch.arange(pts.shape[0], device=pts.device)[:, None, None]
+    p_sq = sumsq3(pts)
     out = []
     for q0 in range(0, p_total, chunk):
-        queries = points[q0:q0 + chunk]
-        _, nbr = min_k(pairwise_d2(queries, points, b_sq=p_sq), k)
-        out.append(_plane_normals(points[nbr]))
+        queries = pts[:, q0:q0 + chunk]
+        _, nbr = min_k(pairwise_d2(queries, pts, b_sq=p_sq), k)
+        out.append(_plane_normals(pts[bi, nbr]))
     cam = torch.as_tensor(camera_pos, dtype=points.dtype, device=points.device)
-    return _orient(torch.cat(out), points, cam)
+    normals = _orient(torch.cat(out, dim=1), pts, cam)
+    return normals if points.dim() == 3 else normals[0]
 
 
 def estimate_normals_knn_window(points, camera_pos, *, k: int = 30,

@@ -1,9 +1,19 @@
-"""Closing-region crop of the online path, batched over candidates.
+"""Closing-region crops, batched: the online path's and the training path's.
 
-Port of the online-path half of ``pointnetgpd_tpu/ops/crop.py``:
-``collect_candidate_clouds`` (kinect2grasp.py:216-233 box, with the
-``recenter`` training-frame option) over the three exact selection
-strategies of ``_crop_batch``:
+Port of ``pointnetgpd_tpu/ops/crop.py``:
+
+- online: ``collect_candidate_clouds`` (kinect2grasp.py:216-233 box, with
+  the ``recenter`` training-frame option);
+- training: ``grasp_frame_from_config`` and ``apply_transform_to_frame``
+  (the gripper frame of a 10-dim grasp row, dataset.py:16-49),
+  ``collect_grasp_clouds`` (G grasps on one shared cloud) and
+  ``collect_grasp_clouds_batched`` (sample i crops its own cloud: one
+  shuffle shared by the batch, per-sample rank windows), and the
+  single-grasp reference path ``crop_closing_region`` /
+  ``_masked_resample``.
+
+The shared-cloud crops take one of the three exact selection strategies of
+``_crop_batch``:
 
 - prefix rank-select (G >= 32 candidates, P > 4096 points): one scene
   shuffle, then the t-th in-region point by rank;
@@ -16,8 +26,7 @@ strategies of ``_crop_batch``:
 Random numbers come from a ``draws.Draws``-like object (``crop_perm``,
 ``crop_windows``, ``crop_keys``, ``crop_ranks``). Frame coordinates round as
 the JAX package does on the CPU (``ops/fp.py``), so box membership and
-counts agree exactly. The training-crop variants (``collect_grasp_clouds*``)
-come in a later slice.
+counts agree exactly.
 """
 
 from __future__ import annotations
@@ -89,12 +98,15 @@ def _crop_batch_prefix(pc, centers, rot_rows, box_lo, box_hi, num_out, draws):
 
 
 def _crop_batch(pc, centers, rot_rows, box_lo, box_hi, num_out: int, draws):
-    """Crop + resample for all grasps. pc (P, 3) shared scene cloud; centers
-    (G, 3); rot_rows (G, 3, 3) rows [approach, binormal, minor]; box_lo /
-    box_hi (G, 3). Returns (points (G, num_out, 3) in grasp frames,
-    counts (G,))."""
-    g, p_total = centers.shape[0], pc.shape[0]
-    if g >= _PREFIX_MIN_G and p_total > _DIRECT_TOPK_MAX:
+    """Crop + resample for all grasps. pc (P, 3) shared scene cloud, or
+    (G, P, 3) one cloud per grasp (the per-sample crops of the GPD
+    baseline, each the JAX package's G = 1 call, so never the prefix
+    branch); centers (G, 3); rot_rows (G, 3, 3) rows [approach, binormal,
+    minor]; box_lo / box_hi (G, 3). Returns (points (G, num_out, 3) in
+    grasp frames, counts (G,))."""
+    g, p_total = centers.shape[0], pc.shape[-2]
+    shared = pc.dim() == 2
+    if shared and g >= _PREFIX_MIN_G and p_total > _DIRECT_TOPK_MAX:
         return _crop_batch_prefix(pc, centers, rot_rows, box_lo, box_hi,
                                   num_out, draws)
     slot_real = None
@@ -108,10 +120,12 @@ def _crop_batch(pc, centers, rot_rows, box_lo, box_hi, num_out: int, draws):
             perm_np[s, :len(run)] = run
         slot_real = torch.as_tensor((perm_np < p_total).reshape(-1),
                                     device=pc.device)
-        pc = pc[torch.as_tensor(np.minimum(perm_np.reshape(-1), p_total - 1),
-                                device=pc.device)]
-    p_len = pc.shape[0]
-    mask = _in_box(_to_frames(pc[None], centers, rot_rows), box_lo, box_hi)
+        pc = pc[..., torch.as_tensor(np.minimum(perm_np.reshape(-1),
+                                                p_total - 1),
+                                     device=pc.device), :]
+    p_len = pc.shape[-2]
+    mask = _in_box(_to_frames(pc[None] if shared else pc, centers, rot_rows),
+                   box_lo, box_hi)
     if slot_real is not None:
         mask = mask & slot_real
     count = mask.sum(dim=-1)
@@ -124,7 +138,9 @@ def _crop_batch(pc, centers, rot_rows, box_lo, box_hi, num_out: int, draws):
     r = draws.crop_ranks(count, num_out).to(pc.device).long()
     idx = torch.where((count > num_out)[:, None], perm[:, :num_out],
                       torch.gather(perm, 1, torch.clamp(r, max=kk - 1)))
-    return _to_frames(pc[idx], centers, rot_rows), count
+    sel = pc[idx] if shared else pc[torch.arange(g, device=pc.device)[:, None],
+                                    idx]
+    return _to_frames(sel, centers, rot_rows), count
 
 
 def _normalize(v):
@@ -173,3 +189,157 @@ def collect_candidate_clouds(bottom_centers, approaches, binormals,
     valid = counts >= min_point_limit
     points = torch.where(valid[:, None, None], points, 0.0)
     return points, counts, valid
+
+
+# --- training crops ----------------------------------------------------------
+
+def _cross(a, b):
+    return torch.stack([a[:, 1] * b[:, 2] - a[:, 2] * b[:, 1],
+                        a[:, 2] * b[:, 0] - a[:, 0] * b[:, 2],
+                        a[:, 0] * b[:, 1] - a[:, 1] * b[:, 0]], dim=1)
+
+
+def grasp_frame_from_config(grasps):
+    """(G, >=8) grasp rows (10-dim configuration, score columns allowed) ->
+    (center, approach, binormal, minor_normal, width), each (G, 3) or (G,).
+
+    The frame math of dataset.py:16-37: binormal = config[3:6] normalized,
+    approach = first column of R2 @ R1, R1 rotating by the approach angle
+    about the binormal and R2 aligning y with the binormal (x-hat where the
+    binormal is +-z)."""
+    center, axis = grasps[:, 0:3], grasps[:, 3:6]
+    width, angle = grasps[:, 6], grasps[:, 7]
+    axis = axis / torch.sqrt(sumsq3(axis))[:, None]
+    cos_t, sin_t = torch.cos(angle), torch.sin(angle)
+    zero = torch.zeros_like(axis[:, 0])
+    axis_x = torch.stack([axis[:, 1], -axis[:, 0], zero], dim=1)
+    n_x = torch.sqrt(sumsq3(axis_x))
+    axis_x = torch.where((n_x == 0)[:, None],
+                         torch.tensor([1.0, 0.0, 0.0], dtype=grasps.dtype,
+                                      device=grasps.device), axis_x)
+    axis_x = axis_x / torch.sqrt(sumsq3(axis_x))[:, None]
+    axis_z = _cross(axis_x, axis)
+    # (R2 @ R1)[:, 0] = axis_x cos + axis_y 0 + axis_z sin
+    approach = fma(axis_z, sin_t[:, None], axis_x * cos_t[:, None])
+    approach = approach / torch.sqrt(sumsq3(approach))[:, None]
+    minor = _cross(axis, approach)
+    return center, approach, axis, minor, width
+
+
+def apply_transform_to_frame(transforms, center, approach, binormal,
+                             minor_normal):
+    """(G, 4, 4) homogeneous transforms: the point to the center, the
+    rotation to the axes (dataset.py:42-49)."""
+    rot = transforms[:, :3, :3]
+
+    def rotate(v):
+        return torch.stack([lin3(rot[:, i, 0], v[:, 0], rot[:, i, 1], v[:, 1],
+                                 rot[:, i, 2], v[:, 2]) for i in range(3)],
+                           dim=1)
+
+    return (rotate(center) + transforms[:, :3, 3], rotate(approach),
+            rotate(binormal), rotate(minor_normal))
+
+
+def _training_frames(grasps, transforms):
+    """Per grasp (centers (G, 3), rot_rows (G, 3, 3), box (G, 3)) of the
+    training crop: the box x, z in +-width/4, y in +-width/2 around the
+    grasp center (dataset.py:50-69)."""
+    center, approach, binormal, minor, width = grasp_frame_from_config(
+        grasps)
+    center, approach, binormal, minor = apply_transform_to_frame(
+        transforms, center, approach, binormal, minor)
+    rot_rows = torch.stack([approach, binormal, minor], dim=1)
+    box = torch.stack([width / 4.0, width / 2.0, width / 4.0], dim=1)
+    return center, rot_rows, box
+
+
+def _masked_resample(points_g, mask, num_out: int, draws):
+    """Fixed-size resample of the masked subset of ``points_g`` (P, 3):
+    ``num_out`` of the in-region points without replacement when there are
+    more, with replacement otherwise (dataset.py:263-268). Returns
+    (points (num_out, 3), count)."""
+    p_total = points_g.shape[0]
+    count = mask.sum()
+    z = draws.crop_keys(1, p_total)[0].to(points_g.device)
+    z = torch.where(mask, z, -torch.inf)
+    kk = min(num_out, p_total)
+    perm = torch.sort(z, descending=True, stable=True)[1][:kk]
+    if kk < num_out:
+        perm = torch.cat([perm, perm[-1:].expand(num_out - kk)])
+    r = draws.crop_ranks(count[None], num_out)[0].to(points_g.device).long()
+    idx = torch.where(count > num_out, perm[:num_out],
+                      perm[torch.clamp(r, max=kk - 1)])
+    return points_g[idx], count
+
+
+def crop_closing_region(grasp_center, rot_rows, box_lo, box_hi, pc,
+                        num_out: int, draws):
+    """One grasp: ``pc`` (P, 3) into the grasp frame (rows of ``rot_rows``
+    [approach, binormal, minor]), the points strictly inside (box_lo,
+    box_hi) resampled to ``num_out``. Returns (points, count). The batched
+    ``collect_*`` entry points use ``_crop_batch`` instead."""
+    pc_t = _to_frames(pc[None], grasp_center[None], rot_rows[None])[0]
+    mask = torch.all((pc_t > box_lo) & (pc_t < box_hi), dim=-1)
+    return _masked_resample(pc_t, mask, num_out, draws)
+
+
+def collect_grasp_clouds(grasps, pc, transform, draws, *, num_out: int = 750,
+                         min_point_limit: int = 50):
+    """Training crop of G grasps (G, >=8) on one cloud pc (P, 3) under one
+    (4, 4) transform. Returns (points (G, num_out, 3) in the gripper frames,
+    counts (G,), valid (G,) = counts >= min_point_limit)."""
+    g = grasps.shape[0]
+    centers, rot_rows, box = _training_frames(
+        grasps, transform[None].expand(g, 4, 4))
+    points, counts = _crop_batch(pc, centers, rot_rows, -box, box, num_out,
+                                 draws)
+    valid = counts >= min_point_limit
+    return torch.where(valid[:, None, None], points, 0.0), counts, valid
+
+
+def collect_grasp_clouds_percloud(grasps, clouds, transforms, draws, *,
+                                  num_out: int = 750,
+                                  min_point_limit: int = 50):
+    """``collect_grasp_clouds`` of each sample on its own cloud: grasp i
+    (B, >=8) on clouds[i] (B, P, 3) under transforms[i], drawn by
+    ``draws.per_sample(B)`` (the JAX package's per-sample calls under
+    ``split(key, B)``). Returns (points (B, num_out, 3), counts, valid)."""
+    centers, rot_rows, box = _training_frames(grasps, transforms)
+    points, counts = _crop_batch(clouds, centers, rot_rows, -box, box,
+                                 num_out, draws.per_sample(grasps.shape[0]))
+    valid = counts >= min_point_limit
+    return torch.where(valid[:, None, None], points, 0.0), counts, valid
+
+
+def _crop_batch_prefix_percloud(pc, centers, rot_rows, box_lo, box_hi,
+                                num_out: int, draws):
+    """Grasp g crops its own cloud pc[g] (G, P, 3): one index shuffle shared
+    by the batch, then the prefix rank-select per sample."""
+    g, p_total = pc.shape[0], pc.shape[1]
+    perm = draws.crop_perm(p_total).to(pc.device).long()
+    pcs = pc[:, perm]
+    p_pad = -(-p_total // _BLK) * _BLK
+    if p_pad > p_total:            # pad rows far away: outside every box
+        pcs = torch.cat([pcs, torch.full((g, p_pad - p_total, 3), 1e9,
+                                         dtype=pc.dtype, device=pc.device)],
+                        dim=1)
+    mask = _in_box(_to_frames(pcs, centers, rot_rows), box_lo, box_hi)
+    count = mask.sum(dim=-1)
+    idx = _rank_select_indices(mask, count, num_out, draws)
+    sel = pcs[torch.arange(g, device=pc.device)[:, None], idx]
+    return _to_frames(sel, centers, rot_rows), count
+
+
+def collect_grasp_clouds_batched(grasps, clouds, transforms, draws, *,
+                                 num_out: int = 750,
+                                 min_point_limit: int = 50):
+    """Per-sample training crop, batched: sample i crops its own cloud.
+    grasps (B, >=8), clouds (B, P, 3), transforms (B, 4, 4). Returns
+    (points (B, num_out, 3) in the gripper frames, counts (B,), valid (B,)
+    = counts >= min_point_limit)."""
+    centers, rot_rows, box = _training_frames(grasps, transforms)
+    points, counts = _crop_batch_prefix_percloud(
+        clouds, centers, rot_rows, -box, box, num_out, draws)
+    valid = counts >= min_point_limit
+    return torch.where(valid[:, None, None], points, 0.0), counts, valid

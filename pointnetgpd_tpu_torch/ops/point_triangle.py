@@ -15,9 +15,12 @@ point, the minimum squared distance to a triangle set.
 - ``min_point_triangle_dist2``: takes the plain version for CPU tensors and
   launches ``csrc/point_triangle.cu`` for CUDA tensors (or raises). The
   kernel walks a block's supertiles in the order of their lower bounds and
-  stops at the first that cannot beat the block's running bound; inside a
-  supertile each warp skips the triangles whose bounding sphere cannot beat
-  the warp's own bound. The minimum it returns does not depend on what it skips.
+  stops at the first that cannot beat the block's running bound (above
+  ``SORT_CHUNK`` supertiles, chunk by chunk: the chunk holding the nearest
+  supertile first, then the others in index order, each walked the same
+  way); inside a supertile each warp skips the triangles whose bounding
+  sphere cannot beat the warp's own bound. The minimum it returns does not
+  depend on what it skips.
 - ``stage_triangles``, ``pair_dist2_staged``, ``supertile_bounds``,
   ``kernel_walk``, ``warp_pairs_needed``: the kernel's arithmetic and walk
   once more in plain torch, for the tests and for counting what a walk
@@ -45,7 +48,7 @@ BLOCK_POINTS = 128       # points per CUDA block, one per thread
 SUPER = 128              # triangles per supertile (pruning granularity)
 _FAR = 1.0e8             # padding sentinel coordinate
 _EPS = 1.0e-30           # the Pallas body's denominator guard
-MAX_SUPERTILES = 16384   # the kernel's shared-memory sort holds this many
+SORT_CHUNK = 16384       # supertiles the kernel sorts at a time in shared memory
 WARP = 32                # points per warp: a 2x4x4 slab of a block
 _SPHERE_MARGIN = 1.0 + 2.0 ** -16   # the kernel's triangle-sphere margin
 # plain version: (points x triangles) per chunk; about 50 float32
@@ -336,18 +339,20 @@ def supertile_bounds(points_blocked, sup_data):
 
 
 def kernel_walk(points_blocked, tri_data, sup_data, *, sorted_walk=True,
-                warp_reject=True):
+                warp_reject=True, sort_chunk=SORT_CHUNK):
     """K3's walk in plain torch, one point per thread: the min squared
     distance (P,), and per block the supertiles visited and the (point,
     triangle) pairs evaluated (int64).
 
     ``sorted_walk``: take supertiles in the order of their bounds (ties to
-    the lower index) until the first bound >= the block's running bound;
-    else the nearest first and then every other in index order whose bound
-    beats it (the TPU kernel's walk). ``warp_reject``: each warp (a 2x4x4
-    slab of 32 points) skips the triangles whose sphere lies farther from
-    its slab's box than its running max; else it evaluates all 128 rows of
-    a visited supertile.
+    the lower index) until the first bound >= the block's running bound,
+    in chunks of ``sort_chunk`` supertiles as the kernel sorts them: the chunk
+    holding the block's nearest supertile first, then the others in index
+    order, each from its least bound; else the nearest first and then every
+    other in index order whose bound beats it (the TPU kernel's walk).
+    ``warp_reject``: each warp (a 2x4x4 slab of 32 points) skips the
+    triangles whose sphere lies farther from its slab's box than its
+    running max; else it evaluates all 128 rows of a visited supertile.
     """
     dev = points_blocked.device
     nb = points_blocked.shape[0] // BLOCK_POINTS
@@ -358,13 +363,23 @@ def kernel_walk(points_blocked, tri_data, sup_data, *, sorted_walk=True,
     consts, spheres = stage_triangles(tri_data)
     n_sup = sup_data.shape[0]
     db = supertile_bounds(points_blocked, sup_data)
+    starts = torch.zeros((nb, n_sup), dtype=torch.bool, device=dev)
+    starts[:, 0] = True
     if sorted_walk:
         order = torch.sort(db, dim=1, stable=True).indices
+        cid = order // sort_chunk
+        head = cid[:, :1]                    # the nearest supertile's chunk
+        rank = torch.where(cid == head, 0, torch.where(cid < head, cid + 1,
+                                                       cid))
+        order = order.gather(1, torch.sort(rank, dim=1, stable=True).indices)
+        cid = order // sort_chunk
+        starts[:, 1:] = cid[:, 1:] != cid[:, :-1]
     else:
         head = db.argmin(dim=1)                      # the first minimum
         idx = torch.arange(n_sup, device=dev).expand(nb, n_sup)
         rest = idx[idx != head[:, None]].reshape(nb, n_sup - 1)
         order = torch.cat([head[:, None], rest], dim=1)
+    last_start = int(torch.nonzero(starts.any(dim=0))[-1, 0])
     wctr, whalf = _box(pts)
     m = torch.full((nb, nw, WARP), float("inf"), device=dev)
     visited = torch.zeros(nb, dtype=torch.int64, device=dev)
@@ -377,12 +392,14 @@ def kernel_walk(points_blocked, tri_data, sup_data, *, sorted_walk=True,
     all_blocks = torch.arange(nb, device=dev)
     for k in range(n_sup):
         s = order[:, k]
+        if sorted_walk:
+            alive = alive | starts[:, k]
         take = alive & ((db[all_blocks, s] < cur) | (k == 0))
         if sorted_walk:
             alive = take
         blocks = torch.nonzero(take)[:, 0]
         if blocks.numel() == 0:
-            if sorted_walk:
+            if sorted_walk and k >= last_start:
                 break
             continue
         for c0 in range(0, blocks.numel(), chunk):
@@ -476,9 +493,6 @@ def _launch(points, tri_data, sup_data, stats=None):
     if n_sup < 1 or n_rows != n_sup * SUPER:
         raise ValueError(f"tri_data must hold {SUPER} rows per supertile: "
                          f"{n_rows} rows, {n_sup} supertiles")
-    if n_sup > MAX_SUPERTILES:
-        raise ValueError(f"the kernel sorts at most {MAX_SUPERTILES} "
-                         f"supertiles in shared memory, got {n_sup}")
     if stats is not None and (
             tuple(stats.shape) != (p // BLOCK_POINTS, 2)
             or stats.dtype != torch.int32 or stats.device != points.device

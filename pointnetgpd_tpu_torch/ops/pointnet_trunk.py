@@ -5,10 +5,13 @@ Port of ``pointnetgpd_tpu/ops/pointnet_trunk_pallas.py``. The eval-mode MLP
 layers 1 and 2, none after layer 3, then the max over the point axis
 (reference PointNetGPD/model/pointnet.py:144-149).
 
-In the port this carries the scorer's eval forward: the STN3d trunk (whose
-ReLU after layer 3 commutes with the max) and the PointNetfeat trunk both go
-through ``fused_trunk``, which launches ``csrc/pointnet_trunk.cu`` for CUDA
-tensors (or raises) and takes ``trunk_reference`` for CPU tensors.
+In the port this carries every eval-mode trunk of this shape: the scorer's
+forward and the trainer's eval pass. The STN3d trunk (whose ReLU after layer
+3 commutes with the max) and the PointNetfeat trunk both go through
+``fused_trunk``, which launches ``csrc/pointnet_trunk.cu`` for CUDA tensors
+(or raises) and takes ``trunk_reference`` for CPU tensors. The kernel has no
+backward (nor has the Pallas one): where autograd would need one,
+``fused_trunk`` raises on either device.
 
 The kernel runs layers 2 and 3 on the tensor cores in 3xTF32: every operand
 is split into a TF32 big part and a TF32 small part (``tf32_split``, as
@@ -95,11 +98,14 @@ def tensor_core_weights(folded):
 
 class FoldedTrunk(tuple):
     """(w1, b1, w2, b2, w3, b3) with weights (in, out), and beside them the
-    kernel's split operands ``tensor_core`` (``tensor_core_weights``)."""
+    kernel's split operands ``tensor_core`` (``tensor_core_weights``).
+    ``requires_grad``: whether a tensor it was folded from requires a
+    gradient."""
 
-    def __new__(cls, tensors):
+    def __new__(cls, tensors, requires_grad: bool = False):
         self = super().__new__(cls, tensors)
         self.tensor_core = tensor_core_weights(self)
+        self.requires_grad = requires_grad
         return self
 
 
@@ -107,13 +113,15 @@ def fold_trunk_params(module):
     """A module with ``conv1..3`` (1x1 Conv1d) and ``bn1..3`` (STN3d or
     PointNetfeat) -> folded (w1, b1, w2, b2, w3, b3), weights transposed to
     (in, out), as a ``FoldedTrunk``."""
-    out = []
+    out, grad = [], False
     for i in (1, 2, 3):
         conv, bn = getattr(module, f"conv{i}"), getattr(module, f"bn{i}")
         w, b = fold_bn(conv.weight[:, :, 0], conv.bias, bn.weight, bn.bias,
                        bn.running_mean, bn.running_var, bn.eps)
         out += [w.t().contiguous(), b.contiguous()]
-    return FoldedTrunk(out)
+        grad = grad or any(t.requires_grad for t in (conv.weight, conv.bias,
+                                                     bn.weight, bn.bias))
+    return FoldedTrunk(out, requires_grad=grad)
 
 
 def trunk_reference(x, folded):
@@ -142,7 +150,15 @@ def trunk_3xtf32(x, folded):
 def fused_trunk(x, folded):
     """x (B, N, C) post-STN points, folded from ``fold_trunk_params`` (a
     ``FoldedTrunk``) -> (B, 1024) global features. CUDA tensors launch the
-    kernel."""
+    kernel. Raises where autograd would differentiate the result: the
+    kernel has no backward, and its output would come back silently
+    detached."""
+    if torch.is_grad_enabled() and (
+            x.requires_grad or getattr(folded, "requires_grad", False)
+            or any(t.requires_grad for t in folded)):
+        raise RuntimeError(
+            "fused_trunk (kernel K2) has no backward: run an eval-mode "
+            "forward under torch.no_grad(), or train mode to differentiate")
     if not x.is_cuda:
         return trunk_reference(x, folded)
     return _launch(x, folded)

@@ -36,7 +36,7 @@ from pointnetgpd_tpu_torch.models.pointnet import PointNetfeat, pointnet_cls_inf
 from pointnetgpd_tpu_torch.ops import gpg_counts as k1
 from pointnetgpd_tpu_torch.ops import point_triangle as k3
 from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
-from test_torch_voxelizer import _exact_distance
+from test_torch_voxelizer import _exact_distance, torus
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -512,3 +512,27 @@ def test_k3_kernel_edge_cases_on_card(cuda_device, case):
     assert torch.equal(again, got)
     assert (stats[:, 0] >= 1).all() and (stats[:, 1] >= 32).all()
     assert (stats[:, 0] <= sup_data.shape[0]).all()
+
+
+@pytest.mark.cuda
+def test_k3_kernel_above_the_old_cap_on_card(cuda_device):
+    """A torus of 2,160,000 triangles (16,875 supertiles, above the
+    16,384 the kernel sorts at a time): the chunked walk against the brute
+    force on 16 point blocks near the surface, rtol 1e-4, atol 1e-7; the
+    stats launch returns the same distances."""
+    v, f = torus(1500, 720)
+    tri_data, sup_data = k3.pack_triangles(v[f].astype(np.float32))
+    assert sup_data.shape[0] == 16875 > k3.SORT_CHUNK
+    pts, _ = k3.blocked_grid(64, 64, 16, [-0.075, -0.075, -0.01], 0.15 / 64)
+    blocks = pts.reshape(-1, k3.BLOCK_POINTS, 3)
+    pick = np.linspace(0, len(blocks) - 1, 16).astype(int)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)
+            for a in (blocks[pick].reshape(-1, 3), tri_data, sup_data)]
+    got = k3.min_point_triangle_dist2(*args)
+    want = k3.min_point_triangle_dist2_torch(*args)
+    np.testing.assert_allclose(got.sqrt().cpu().numpy(),
+                               want.sqrt().cpu().numpy(), rtol=1e-4,
+                               atol=1e-7)
+    stats = torch.zeros((16, 2), dtype=torch.int32, device=cuda_device)
+    assert torch.equal(k3._launch(*args, stats=stats), got)
+    assert (stats[:, 0] >= 1).all() and (stats[:, 1] >= 32).all()

@@ -135,10 +135,16 @@ def test_layers_match_jax_batchnorm_eval():
 
 
 def test_model_is_eval_only():
+    """The model is built in eval mode, as the scorer runs it; train mode is
+    the trainer's (tests/test_torch_training.py), and an eval forward that
+    autograd would differentiate raises (K2 has no backward)."""
     model = PointNetCls(k=3)
     assert not model.training
-    with pytest.raises(NotImplementedError):
-        model.train()
+    x = torch.zeros(2, 8, 3)
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(x)
+    assert model.train().training and model.eval() is model
+    assert not model.training
 
 
 def test_folded_trunk_is_reused_until_a_weight_changes(golden_model):

@@ -368,17 +368,42 @@ def test_warp_pairs_needed_counts_what_the_reject_keeps():
 
 def test_k3_launch_checks_its_arguments():
     """The wrapper raises on what the kernel cannot take, before any
-    build: a stats tensor of the wrong shape or type, too many
-    supertiles for the kernel's sort."""
+    build: a stats tensor of the wrong shape or type, triangle rows that
+    do not fill whole supertiles. It sets no cap on the supertile count:
+    above ``SORT_CHUNK`` the kernel walks them in chunks."""
     pts, tri_data, sup_data = _walk_case()
     for bad in (torch.zeros((3, 2), dtype=torch.int32),
                 torch.zeros((pts.shape[0] // 128, 2))):
         with pytest.raises(ValueError, match="stats"):
             k3._launch(pts, tri_data, sup_data, stats=bad)
-    n = k3.MAX_SUPERTILES + 1
-    with pytest.raises(ValueError, match="supertiles"):
-        k3._launch(pts, torch.zeros((n * k3.SUPER, 16)),
+    n = k3.SORT_CHUNK + 1
+    with pytest.raises(ValueError, match="supertile"):
+        k3._launch(pts, torch.zeros((n * k3.SUPER - 1, 16)),
                    torch.zeros((n, 8)))
+    assert not hasattr(k3, "MAX_SUPERTILES")
+
+
+@pytest.mark.parametrize("chunk", [4, 5, 7])
+def test_kernel_walk_in_chunks_returns_the_brute_force_minimum(chunk):
+    """The chunked walk the kernel takes above ``SORT_CHUNK`` supertiles
+    (the chunk holding the nearest supertile first, then index order, each
+    sorted and walked until its first bound >= the running bound), here in
+    chunks of a few supertiles, returns the minimum of the pair body over
+    every triangle, exactly; its first supertile is the nearest, and one
+    chunk at least as large as the mesh is the single sorted walk."""
+    pts, tri_data, sup_data = _walk_case()
+    consts, _ = k3.stage_triangles(tri_data)
+    brute = torch.cat([k3.pair_dist2_staged(pts[c:c + 512, None],
+                                            consts[None]).amin(dim=1)
+                       for c in range(0, pts.shape[0], 512)])
+    d2, visited, pairs = k3.kernel_walk(pts, tri_data, sup_data, sort_chunk=chunk)
+    assert torch.equal(d2, brute)
+    assert (visited >= 1).all() and (pairs >= k3.WARP).all()
+    assert (visited <= sup_data.shape[0]).all()
+    one = k3.kernel_walk(pts, tri_data, sup_data)
+    for a, b in zip(one, k3.kernel_walk(pts, tri_data, sup_data,
+                                        sort_chunk=sup_data.shape[0])):
+        assert torch.equal(a, b)
 
 
 # ------------------------------------------------------------------ voxelizer
