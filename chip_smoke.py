@@ -1,6 +1,6 @@
-"""Drive the PyTorch/CUDA port's three paths on one GPU: the online
-grasp-detection frame, the mesh -> SDF voxelizer (object preparation) and
-the trainer.
+"""Drive the PyTorch/CUDA port's four paths on one GPU: the online
+grasp-detection frame, the mesh -> SDF voxelizer (object preparation), the
+trainer and dataset labeling.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -23,7 +23,9 @@ Phases, in order; any failure exits non-zero:
    version at the detector's (B, N) = (64, 500), the scorer benchmark's
    (512, 750) and the edges (1, 300), (4, 1), (3, 129), to
    |err| <= 1e-4 * (1 + |ref|); the golden checkpoint's frozen outputs are
-   reproduced on the card through K2 to 1e-4;
+   reproduced on the card through K2 to 1e-4; DualPointNetCls (6-channel
+   trunks) and PointNetDenseCls in eval mode through K2 and through its
+   plain version, to the same tolerance;
 5. the main path: GraspDetector.process_frame on a few frames with the
    golden 3-class checkpoint, DetectorConfig() defaults and
    cloud_pad_to=4096. The launch counters are zeroed just before and read
@@ -76,6 +78,29 @@ Phases, in order; any failure exits non-zero:
    with samples/s and peak memory, and of a GPD step. With ``--profile``,
    host time per ``record_function`` span (``train.*``, ``eval.*``) and the
    device's busy share of one train step and one eval batch.
+9. the labeling path (``labeling_phases``), each card result held to the
+   same computation on the CPU under one replayed draw tape (``Tape``): a
+   lane that differs must lie within 1e-5 relative of its threshold
+   (float64 on the CPU) or be decided by rounding, i.e. move on the CPU
+   route under a one-ulp change of the SDF's values, origin or resolution
+   or of the draws (``nudged_sdfs``); at most 10% of the lanes. Each
+   Ferrari-Canny metric is also held on equal rows (``hold_metric``), and
+   the force-only one to a float64 qhull witness (``qhull_eps``);
+   a. ``bench.py``'s labeling cell: a sphere SDF of dim 48, 256 antipodal
+      attempts with 48 line samples at mu 2.0, the friction ladder and
+      the 6-D epsilon; labeled grasps/s for each (CUDA events, 5 and 3
+      warm rounds);
+   b. ``generate_for_object_dir`` on phase 7's torus, prepared again
+      (sdf_dim 100; robotiq_85, the less ladder, 20 per class), cold and
+      warm: rows per class, rounds, quota status, seconds; its first
+      round's sampler and labels against the CPU route; the rows' format;
+   c. ``gpg_sample_grasps_sdf`` (covariance and curvature frames) and
+      ``point_sample_grasps_sdf`` on the torus resting on the table: K1
+      must launch 3 times per call, each launch must equal the plain
+      version on its active frames, and the candidates with K1 swapped for
+      its plain version must be equal; K1's time there;
+   d. ``ground_truth_quality`` of 9c's valid candidates with the torus at
+      a pose, card against the CPU route.
 
 Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
 slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
@@ -99,6 +124,7 @@ last line is the contract line {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -130,6 +156,8 @@ K3_OPS_PER_TEST = 17
 K3_OPS_PER_PAIR_TPU = 136  # the Pallas body: five divisions, six dot products
 K3_TOL = (1e-4, 1e-7)      # rtol, atol on distances (kernel vs plain)
 TORUS = (300, 100, 0.05, 0.02)   # nu, nv, R, r: 60,000 triangles
+LABEL_TOL = 1e-5           # contact points, configs: 1e-5 x (1 + |ref|)
+EPS_RTOL, EPS_ATOL = 1e-4, 1e-6   # epsilons
 
 
 def k2_bounds(b, n):
@@ -1241,6 +1269,667 @@ def training_phases(torch, card, profile, dev="cuda", batch=128,
             "err": k2_err}
 
 
+class Tape:
+    """One generator's draws, recorded on the first route that asks and
+    replayed, call for call, to every later route (``rewind``), so the card
+    route and the CPU route see the same numbers; ``rewind(1)`` and
+    ``rewind(-1)`` replay every float draw moved by one ulp up or down.
+    Each sampling round takes the same tape (``next_round``), as the
+    default ``Draws`` does."""
+
+    def __init__(self, seed):
+        from pointnetgpd_tpu_torch.draws import Draws
+
+        self.src = Draws(seed, "cpu")
+        self.log, self.replay, self.step = [], None, 0
+
+    def rewind(self, step=0):
+        self.replay, self.step = list(self.log), step
+        return self
+
+    def next_round(self):
+        return self
+
+    def _moved(self, out):
+        import torch
+
+        if isinstance(out, tuple):
+            return tuple(self._moved(o) for o in out)
+        if self.step == 0 or not out.is_floating_point():
+            return out
+        return torch.nextafter(out, torch.full_like(
+            out, math.copysign(math.inf, self.step)))
+
+    def __getattr__(self, name):
+        def call(*args):
+            if self.replay is None:
+                out = getattr(self.src, name)(*args)
+                self.log.append((name, args, out))
+                return out
+            if not self.replay or self.replay[0][:2] != (name, args):
+                fail(f"draw {name}{args} out of order on replay")
+            return self._moved(self.replay.pop(0)[2])
+        return call
+
+
+def nudged_sdfs(sdf, device):
+    """The SDF with its values, its origin or its resolution moved by one
+    ulp either way, on ``device``: a lane whose result moves under these is decided by
+    float32 rounding (an ill-conditioned zero crossing, an axis between two
+    nearly equal contacts, coplanar friction-cone edges)."""
+    from pointnetgpd_tpu_torch.geometry.sdf import make_sdf
+
+    data = sdf.data.cpu().numpy()
+    o = sdf.origin.cpu().numpy()
+    res = float(sdf.resolution)
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+    r32 = np.float32(res)
+    return ([make_sdf(np.nextafter(data, s), o, res, device=device)
+             for s in (up, down)]
+            + [make_sdf(data, np.nextafter(o, s), res, device=device)
+               for s in (up, down)]
+            + [make_sdf(data, o, np.nextafter(r32, s), device=device)
+               for s in (up, down)])
+
+
+def masked(d, base, mask_key):
+    """``d`` with the continuous fields of lanes ``base[mask_key]`` rejects
+    set to 0 (a rejected attempt's geometry is not compared)."""
+    if mask_key is None:
+        return d
+    keep = base[mask_key]
+    o = dict(d)
+    for k in ("configs", "contacts"):
+        if k in o:
+            o[k] = np.where(keep.reshape((-1,) + (1,) * (o[k].ndim - 1)),
+                            o[k], 0)
+    return o
+
+
+def lane_diff(a, b, discrete):
+    """(G,) lanes where two results differ: any field of ``discrete`` not
+    equal, or a continuous field beyond LABEL_TOL x (1 + |b|)."""
+    g = len(next(iter(a.values())))
+    out = np.zeros(g, bool)
+    if g == 0:
+        return out
+    for k in a:
+        x = np.asarray(a[k]).reshape(g, -1)
+        y = np.asarray(b[k]).reshape(g, -1)
+        if k in discrete:
+            out |= (x != y).any(axis=1)
+        else:
+            tol = (LABEL_TOL if k in ("configs", "contacts", "center_sdf")
+                   else EPS_RTOL) * (1 + np.abs(y)) + (
+                0 if k in ("configs", "contacts", "center_sdf") else EPS_ATOL)
+            bad = np.abs(x - y) > tol
+            bad &= ~(np.isnan(x) & np.isnan(y))
+            out |= bad.any(axis=1)
+    return out
+
+
+def fc_margin(contacts, normals, mus):
+    """(G,) least relative distance, in float64, of the closure angle of
+    either contact to arctan(mu) over the ladder ``mus``: the deciding
+    quantity of a force-closure flag (quality.py:129-149)."""
+    p = np.asarray(contacts, np.float64)
+    n = np.asarray(normals, np.float64)
+    d = p[:, 1] - p[:, 0]
+    dist = np.maximum(np.linalg.norm(d, axis=1), 1e-16)
+    out = np.full(len(p), np.inf)
+    for k, diff in ((0, d), (1, -d)):
+        proj = np.abs(np.sum(-n[:, k] * diff, axis=1)) / np.maximum(
+            np.linalg.norm(n[:, k], axis=1), 1e-16)
+        ang = np.arccos(np.clip(proj / dist, -1, 1))
+        for mu in mus:
+            out = np.minimum(out, np.abs(ang - np.arctan(mu)) / np.arctan(mu))
+    return out
+
+
+def hold_routes(problems, name, card, cpu, unstable, discrete, margin=None):
+    """Hold a card result to the CPU route's lane by lane (dicts of (G, ...)
+    arrays). A lane that differs passes only when its deciding quantity
+    lies within 1e-5 relative of its threshold (``margin``, float64 on the
+    CPU) or the CPU route itself moves on it under a one-ulp change of the
+    SDF or of the draws (``unstable``, from the CPU route's runs only); at
+    most 10% of the lanes may need either. A failed hold is added to
+    ``problems``, which fails the phase at its end. Returns (lanes
+    differing, by margin, by rounding)."""
+    diff = lane_diff(card, cpu, discrete)
+    near = diff & (margin <= 1e-5) if margin is not None else diff & False
+    rounding = diff & ~near & unstable
+    left = diff & ~near & ~rounding
+    g = len(diff)
+    print(f"{name}: {g} lanes, {int(diff.sum())} differ card vs CPU route: "
+          f"{int(near.sum())} within 1e-5 relative of a threshold (float64 "
+          f"margin on the CPU), {int(rounding.sum())} decided by rounding "
+          f"(the CPU route moves on them under a one-ulp change of the SDF "
+          f"or of the draws; {int(unstable.sum())} such lanes in all), "
+          f"{int(left.sum())} unexplained", flush=True)
+    for i in np.where(left)[0][:3]:
+        fields = {k: (np.asarray(card[k])[i], np.asarray(cpu[k])[i])
+                  for k in card if lane_diff({k: card[k][i:i + 1]},
+                                             {k: cpu[k][i:i + 1]},
+                                             discrete)[0]}
+        print(f"  lane {i}: card / CPU {fields}; margin "
+              f"{None if margin is None else float(margin[i]):}", flush=True)
+    if left.any():
+        problems.append(f"{name}: the card route disagrees with the CPU "
+                        f"route on lanes {np.where(left)[0][:10].tolist()}")
+    if (near | rounding).sum() > 0.1 * g:
+        problems.append(f"{name}: more than 10% of the lanes differ")
+    return int(diff.sum()), int(near.sum()), int(rounding.sum())
+
+
+def qhull_eps(rows):
+    """Float64 witness of the force-only Ferrari-Canny epsilon of (G, M, 3)
+    rows: scipy's qhull hull of each row set; epsilon is the least distance
+    from the origin to a facet plane, 0 unless the origin lies inside by
+    more than 1e-10 (a flat row set has no hull: 0)."""
+    from scipy.spatial import ConvexHull, QhullError
+
+    rows = np.asarray(rows, np.float64)
+    out = np.zeros(len(rows))
+    for i, r in enumerate(rows):
+        try:
+            margin = -ConvexHull(r).equations[:, 3].max()
+        except (QhullError, ValueError):     # flat, empty or not finite
+            continue
+        out[i] = margin if margin > 1e-10 else 0.0
+    return out
+
+
+def record_metric(module, name, calls):
+    """Context: every call of ``module.name`` appends (its first argument,
+    its output), both copied to the CPU, to ``calls``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        orig = getattr(module, name)
+
+        def rec(x, *a, **k):
+            out = orig(x, *a, **k)
+            calls.append(((x,) + a, out.detach().cpu().clone()))
+            return out
+
+        setattr(module, name, rec)
+        try:
+            yield orig
+        finally:
+            setattr(module, name, orig)
+    return ctx()
+
+
+def hold_metric(problems, name, fn, card_calls, cpu_calls, dev, witness=True):
+    """The metric stage of a labeling call, card against CPU: ``fn`` on the
+    card, given the CPU route's own input rows, returns the CPU route's
+    epsilons (rtol 1e-4, atol 1e-6), except on lanes where the CPU's own
+    epsilon moves under a one-ulp change of its rows, at most 10% of them.
+    With ``witness``, each route's epsilons also agree, on every lane, with
+    the float64 qhull witness of its own rows, and the means of the two
+    routes agree within 2%."""
+    import torch
+
+    for j, ((a_card, e_card), (a_cpu, e_cpu)) in enumerate(
+            zip(card_calls, cpu_calls)):
+        e_card, e_cpu = e_card.numpy(), e_cpu.numpy()
+        same = fn(*(x.to(dev) for x in a_cpu)).cpu().numpy()
+        tol = EPS_RTOL * np.abs(e_cpu) + EPS_ATOL
+        off = np.abs(same - e_cpu) > tol
+        moved = np.zeros(len(e_cpu), bool)
+        for sign in (1, -1):
+            rows = a_cpu[0]
+            rows = torch.nextafter(rows, torch.full_like(rows, sign * math.inf))
+            moved |= np.abs(fn(rows, *a_cpu[1:]).numpy() - e_cpu) > tol
+        left = off & ~moved
+        msg = (f"{name} call {j}: {len(e_cpu)} lanes; the card's metric on "
+               f"the CPU route's rows: {int(off.sum())} lanes off the CPU's "
+               f"epsilons, {int((off & moved).sum())} of them where the "
+               f"CPU's own moves under a one-ulp change of its rows "
+               f"({int(moved.sum())} such lanes), {int(left.sum())} "
+               f"unexplained")
+        if left.any() or (off & moved).sum() > 0.1 * len(e_cpu):
+            problems.append(f"{name}: the card's metric disagrees with the "
+                            f"CPU's on equal rows")
+        if witness:
+            w_card = qhull_eps(a_card[0].cpu().numpy())
+            w_cpu = qhull_eps(a_cpu[0].numpy())
+            bad_card = np.abs(e_card - w_card) > EPS_RTOL * w_card + EPS_ATOL
+            bad_cpu = np.abs(e_cpu - w_cpu) > EPS_RTOL * w_cpu + EPS_ATOL
+            msg += (f"; off the float64 qhull witness of their own rows: "
+                    f"card {int(bad_card.sum())}, CPU {int(bad_cpu.sum())} "
+                    f"lanes; means card {e_card.mean():.6f}, CPU "
+                    f"{e_cpu.mean():.6f}, witness {w_card.mean():.6f} (card "
+                    f"rows), {w_cpu.mean():.6f} (CPU rows)")
+            if bad_card.any() or bad_cpu.any():
+                problems.append(f"{name}: epsilons off the float64 witness")
+            if abs(e_card.mean() - e_cpu.mean()) > 0.02 * abs(
+                    e_cpu.mean()) + EPS_ATOL:
+                problems.append(f"{name}: epsilon means differ by more "
+                                f"than 2%")
+        print(msg, flush=True)
+
+
+def k2_channel_models(torch, dev):
+    """Satellite of phase 4: DualPointNetCls (6-channel trunks) and
+    PointNetDenseCls (per-point trunk) in eval mode on the card, through K2
+    and through its plain version."""
+    from pointnetgpd_tpu_torch.models.pointnet import (DualPointNetCls,
+                                                       PointNetDenseCls)
+    from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
+
+    torch.manual_seed(5)
+    launch2 = k2._launch
+    for name, model, c in (("DualPointNetCls", DualPointNetCls(k=3), 6),
+                           ("PointNetDenseCls", PointNetDenseCls(k=3), 3)):
+        model = model.to(dev).eval()
+        for m in model.modules():          # non-trivial running statistics
+            if isinstance(m, torch.nn.BatchNorm1d):
+                m.running_mean.uniform_(-0.1, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+        x = torch.randn(16, 500, c, device=dev) * 0.05
+        with torch.no_grad():
+            n0 = k2.launches
+            got = model(x)
+            used = k2.launches - n0
+            k2._launch = k2.trunk_reference
+            try:
+                want = model(x)
+            finally:
+                k2._launch = launch2
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        bad = sum(int(((g - w).abs() > K2_TOL * (1 + w.abs())).sum())
+                  for g, w in zip(got, want))
+        print(f"K2 in {name} ({c} input channels, eval, 16x500): {used} "
+              f"launches, max |K2 route - plain route| = {err:.3e} "
+              f"(tolerance 1e-4 * (1 + |plain|))", flush=True)
+        if bad or (used == 0 and torch.device(dev).type == "cuda"):
+            fail(f"K2 in {name} disagrees with the plain route")
+
+
+def labeling_phases(torch, card, dev="cuda", attempts=256, torus=TORUS,
+                    sdf_dim=100, per_class=20, max_rounds=None):
+    """Phase 9: the labeling path (see the module docstring) on ``dev``,
+    held to the CPU route. Returns its numbers for the kernels line and the
+    summary. The sizes are parameters so that a CPU rehearsal can run it
+    small."""
+    import pickle
+    import tempfile
+
+    from pointnetgpd_tpu_torch.geometry.io import read_obj, read_sdf, write_obj
+    from pointnetgpd_tpu_torch.geometry.mesh import center_of_mass
+    from pointnetgpd_tpu_torch.geometry.sdf import make_sdf
+    from pointnetgpd_tpu_torch.grasping import evaluation as ev
+    from pointnetgpd_tpu_torch.grasping import quality as qm
+    from pointnetgpd_tpu_torch.grasping import samplers as sm
+    from pointnetgpd_tpu_torch.grasping.grasp import adaptive_num_samples
+    from pointnetgpd_tpu_torch.grasping.gripper import Gripper
+    from pointnetgpd_tpu_torch.ops import gpg_counts as k1
+    from pointnetgpd_tpu_torch.pipelines import generate_dataset as gen
+    from pointnetgpd_tpu_torch.pipelines.ground_truth import (
+        ground_truth_quality)
+    from pointnetgpd_tpu_torch.pipelines.prepare_objects import (
+        prepare_object_dir)
+
+    fc = ev.FC_LIST_LESS_CLASS.astype(np.float32)
+    out, problems = {}, []
+
+    def np_(t):
+        return t.cpu().numpy() if isinstance(t, torch.Tensor) else t
+
+    def both(data, origin, res):
+        return (make_sdf(data, origin, res, device=dev),
+                make_sdf(data, origin, res, device="cpu"))
+
+    # a. bench.py's labeling cell at its own sizes
+    dim, res, r = 48, 0.0025, 0.045
+    origin = -res * (dim - 1) / 2 * np.ones(3)
+    ii, jj, kk = np.meshgrid(*(np.arange(dim),) * 3, indexing="ij")
+    data = (np.linalg.norm(origin + res * np.stack([ii, jj, kk], -1),
+                           axis=-1) - r).astype(np.float32)
+    sph_card, sph_cpu = both(data, origin, res)
+    com = np.zeros(3, np.float32)
+    tape = Tape(9)
+
+    def cell(sdf, step=0):
+        s = sm.antipodal_sample_grasps(
+            sdf, tape.rewind(step) if tape.log else tape, max_width=0.10,
+            friction_coef=float(fc[0]), num_attempts=attempts,
+            num_samples_loa=48)
+        _, idx, lok = ev.friction_boundary_labels(
+            sdf, s.configs, torch.as_tensor(fc, device=s.configs.device))
+        eps6, _ = ev.evaluate_ferrari_canny_6d(
+            sdf, s.configs, com, float(fc[0]), num_samples=48,
+            torque_scaling=10.0)
+        return {k: np_(v) for k, v in dict(
+            valid=s.valid, configs=s.configs, contacts=s.contacts,
+            normals=s.normals, label_idx=idx, label_ok=lok,
+            eps6=eps6).items()}
+
+    c6_card, c6_cpu = [], []
+    t0 = time.perf_counter()
+    with record_metric(qm, "ferrari_canny_l1_device_batch",
+                       c6_card) as metric6:
+        got = cell(sph_card)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with record_metric(qm, "ferrari_canny_l1_device_batch", c6_cpu):
+        want = cell(sph_cpu)
+    cpu_s = time.perf_counter() - t0
+    keys3 = ("valid", "configs", "contacts", "label_idx", "label_ok")
+    disc3 = ("valid", "label_idx", "label_ok")
+
+    def sub(d, keys):
+        return {k: d[k] for k in keys}
+
+    def rounding(want, runs, keys, discrete, mask_key=None):
+        """Lanes where the CPU route's own runs under one-ulp changes
+        (``runs``) leave its result ``want``."""
+        lanes = np.zeros(len(want[keys[0]]), bool)
+        for other in runs:
+            lanes |= lane_diff(masked(sub(other, keys), want, mask_key),
+                               masked(sub(want, keys), want, mask_key),
+                               discrete)
+        return lanes
+
+    # the CPU route under one-ulp changes of the SDF and of the draws
+    nudged = ([cell(s) for s in nudged_sdfs(sph_cpu, "cpu")]
+              + [cell(sph_cpu, step) for step in (1, -1)])
+
+    print(f"9a labeling cell (sphere dim 48, res 0.0025, r 0.045; "
+          f"{attempts} attempts, 48 line samples, mu 2.0): card "
+          f"{cold_s:.2f} s cold, CPU route {cpu_s:.2f} s; valid "
+          f"{int(got['valid'].sum())} card, {int(want['valid'].sum())} CPU; "
+          f"labeled (3-D) {int((got['label_ok'] & got['valid']).sum())} "
+          f"card, {int((want['label_ok'] & want['valid']).sum())} CPU",
+          flush=True)
+    out["9a"] = hold_routes(
+        problems, "9a sampler + friction ladder",
+        masked(sub(got, keys3), want, "valid"),
+        masked(sub(want, keys3), want, "valid"),
+        rounding(want, nudged, keys3, disc3, "valid"), disc3,
+        fc_margin(want["contacts"], want["normals"], list(fc)))
+    out["9a_6d"] = hold_routes(
+        problems, "9a 6-D epsilon", sub(got, ("eps6",)),
+        sub(want, ("eps6",)),
+        rounding(want, nudged, ("eps6",), ())
+        | rounding(want, nudged, keys3, disc3, "valid"), ())
+    hold_metric(problems, "9a 6-D metric", metric6, c6_card, c6_cpu, dev,
+                witness=False)
+
+    def timed_rounds(fn, n):
+        counts = [fn(100)]                              # warm
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        counts = [fn(200 + i) for i in range(n)]
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / n
+        return ms, float(np.mean([int(c) for c in counts]))
+
+    def sample(seed):
+        return sm.antipodal_sample_grasps(
+            sph_card, seed=seed, max_width=0.10, friction_coef=float(fc[0]),
+            num_attempts=attempts, num_samples_loa=48)
+
+    def round3(seed):
+        s = sample(seed)
+        _, _, lok = ev.friction_boundary_labels(
+            sph_card, s.configs, torch.as_tensor(fc, device=dev))
+        return (lok & s.valid).sum()
+
+    def round6(seed):
+        s = sample(seed)
+        q, _ = ev.evaluate_ferrari_canny_6d(sph_card, s.configs, com,
+                                            float(fc[0]), num_samples=48,
+                                            torque_scaling=10.0)
+        return (q > 0).sum()
+
+    ms3, n3 = timed_rounds(round3, 5)
+    ms6, n6 = timed_rounds(round6, 3)
+    out.update(ms3=ms3, gps3=n3 / ms3 * 1e3, ms6=ms6, gps6=n6 / ms6 * 1e3)
+    print(f"9a timings ({card}): 3-D label {ms3:.2f} ms per round of "
+          f"{attempts} attempts, {n3:.1f} labeled grasps per round, "
+          f"{out['gps3']:.1f} labeled grasps/s; 6-D label {ms6:.2f} ms per "
+          f"round, {n6:.1f} nonzero epsilons per round, {out['gps6']:.1f} "
+          f"labeled grasps/s (CUDA events, warm, 5 and 3 rounds)",
+          flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # b. one object at the real size: phase 7's torus, prepared again
+        v, f = torus_mesh(*torus)
+        obj_dir = os.path.join(tmp, "torus")
+        os.makedirs(os.path.join(obj_dir, "google_512k"))
+        write_obj(os.path.join(obj_dir, "google_512k", "nontextured.obj"),
+                  v, f)
+        sdf_path = prepare_object_dir(obj_dir, sdf_dim=sdf_dim,
+                                      sdf_padding=5, device=dev)
+        gripper = Gripper.named("robotiq_85")
+        secs = []
+        for run in ("cold", "warm"):
+            zero_counts()
+            t0 = time.perf_counter()
+            path, stats = gen.generate_for_object_dir(
+                obj_dir, os.path.join(tmp, "out"), gripper, seed=0,
+                less_class=True, grasps_per_class=per_class, device=dev,
+                max_rounds=max_rounds)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches = read_counts()
+            status = ("quota met" if stats["quota_met"] else
+                      "exhausted" if stats["exhausted"] else "budget spent")
+            print(f"9b generate_for_object_dir(torus, {len(f):,} triangles, "
+                  f"sdf_dim {sdf_dim}, robotiq_85, less ladder, {per_class} "
+                  f"per class) {run}: {secs[-1]:.2f} s, rows per class "
+                  f"{stats['per_class']} ({stats['n_rows']} rows), "
+                  f"{stats['rounds']} rounds, {status}, launches {launches} "
+                  f"({card})", flush=True)
+            if any(launches.values()):
+                fail("generate_for_object_dir launched a kernel")
+        rows = np.load(path)
+        with open(path.replace(".npy", ".pickle"), "rb") as fh:
+            rows_pickled = pickle.load(fh)
+        if (rows.shape[1] != 12 or rows.dtype != np.float32
+                or len(rows_pickled) != len(rows)
+                or not np.isfinite(rows).all()):
+            fail("generate_for_object_dir wrote malformed rows")
+        out["9b"] = dict(cold_s=secs[0], warm_s=secs[1], rows=len(rows),
+                         rounds=stats["rounds"],
+                         per_class=stats["per_class"], status=status)
+
+        # the first round against the CPU route under shared draws
+        t_card = read_sdf(sdf_path, device=dev)
+        t_cpu = read_sdf(sdf_path, device="cpu")
+        ns = adaptive_num_samples(t_card, gripper.max_width)
+        verts, faces = read_obj(os.path.join(obj_dir, "google_512k",
+                                             "nontextured.obj"))
+        com_t = center_of_mass(verts, faces).astype(np.float32)
+        tape = Tape(0)
+        keys = ("valid", "configs", "contacts")
+
+        def first_round(sdf, step=0):
+            s = sm.antipodal_sample_grasps(
+                sdf, tape.rewind(step) if tape.log else tape,
+                max_width=gripper.max_width, min_width=gripper.min_width,
+                friction_coef=2.0, num_attempts=attempts,
+                num_samples_loa=ns)
+            return {k: np_(v) for k, v in s._asdict().items()}
+
+        got, want = first_round(t_card), first_round(t_cpu)
+        nudged = ([first_round(s) for s in nudged_sdfs(t_cpu, "cpu")]
+                  + [first_round(t_cpu, step) for step in (1, -1)])
+        out["9b_first"] = hold_routes(
+            problems, "9b first round: antipodal sampler",
+            masked(sub(got, keys), want, "valid"),
+            masked(sub(want, keys), want, "valid"),
+            rounding(want, nudged, keys, ("valid",), "valid"), ("valid",),
+            fc_margin(want["contacts"], want["normals"], [2.0]))
+
+        # the labels of the card's accepted grasps, on both routes
+        cfg = sm.dedupe_grasps(got["configs"][got["valid"]])
+
+        def labels(sdf):
+            c = torch.as_tensor(cfg, device=sdf.data.device)
+            lfc, idx, ok = ev.friction_boundary_labels(
+                sdf, c, torch.as_tensor(fc, device=c.device), num_samples=ns)
+            q, cts = ev.evaluate_ferrari_canny(sdf, c, com_t, lfc,
+                                               num_samples=ns)
+            return {"label_idx": np_(idx), "label_ok": np_(ok),
+                    "canny": np_(q), "contacts": np_(cts.points),
+                    "normals": np_(cts.normals)}
+
+        lkeys = ("label_idx", "label_ok")
+        fo_card, fo_cpu = [], []
+        with record_metric(qm, "ferrari_canny_l1_force_only",
+                           fo_card) as metric3:
+            lg = labels(t_card)
+        with record_metric(qm, "ferrari_canny_l1_force_only", fo_cpu):
+            lw = labels(t_cpu)
+        nudged = [labels(s) for s in nudged_sdfs(t_cpu, "cpu")]
+        out["9b_labels"] = hold_routes(
+            problems,
+            "9b first round: friction labels of the card's accepted grasps",
+            sub(lg, lkeys), sub(lw, lkeys),
+            rounding(lw, nudged, lkeys, lkeys), lkeys,
+            fc_margin(lw["contacts"], lw["normals"], fc))
+        out["9b_canny"] = hold_routes(
+            problems, "9b first round: their Ferrari-Canny labels",
+            sub(lg, ("canny",)), sub(lw, ("canny",)),
+            rounding(lw, nudged, ("canny",) + lkeys, lkeys), ())
+        hold_metric(problems, "9b first round: the Ferrari-Canny metric",
+                    metric3, fo_card, fo_cpu, dev)
+
+        # c. SDF GPG on the torus resting on the table (z = 0)
+        grid = t_card.data.cpu().numpy()
+        lift = t_card.origin.cpu().numpy() + [0, 0, torus[3]]
+        up_card, up_cpu = both(grid, lift, float(t_card.resolution))
+        launch1 = k1.GpgScanContext._launch
+        rec = []
+
+        def rec1(ctx, fx, sc, is_y):
+            rec.append((ctx, fx.clone(), sc.clone(), is_y))
+            return launch1(ctx, fx, sc, is_y)
+
+        def plain1(ctx, fx, sc, is_y):
+            return k1.gpg_scan_counts_torch(ctx.points, ctx.seeds,
+                                            ctx.rot_rows, fx, sc, ctx.boxes,
+                                            scan_is_y=is_y)
+
+        kw = dict(seed=1, num_seeds=128)
+        samplers = {
+            "gpg_sample_grasps_sdf": lambda: sm.gpg_sample_grasps_sdf(
+                up_card, gripper, **kw),
+            "gpg_sample_grasps_sdf(curvature_frames)":
+                lambda: sm.gpg_sample_grasps_sdf(
+                    up_card, gripper, curvature_frames=True, **kw),
+            "point_sample_grasps_sdf": lambda: sm.point_sample_grasps_sdf(
+                up_card, gripper, **kw)}
+        cands = {}
+        zero_counts()
+        k1.GpgScanContext._launch = rec1
+        try:
+            for name, fn in samplers.items():
+                cands[name] = fn()
+        finally:
+            k1.GpgScanContext._launch = launch1
+        launches = read_counts()
+        print(f"9c SDF GPG on the torus: launches {launches} over "
+              f"{len(samplers)} sampler calls", flush=True)
+        if launches != {"gpg_counts": 3 * len(samplers) * (dev != "cpu"),
+                        "pointnet_trunk": 0, "point_triangle": 0}:
+            problems.append("9c: the SDF GPG samplers must launch K1 3 "
+                            "times each")
+        out["k1_launches"] = launches["gpg_counts"]
+        k1.GpgScanContext._launch = plain1
+        try:
+            for name, fn in samplers.items():
+                p, c = fn(), cands[name]
+                same = (torch.equal(p.valid, c.valid)
+                        and torch.equal(p.frames[p.valid],
+                                        c.frames[c.valid]))
+                print(f"9c {name}: {int(c.valid.sum())} valid of "
+                      f"{len(c.valid)} candidates; K1 route equal to the "
+                      f"plain route: {same}", flush=True)
+                if not same:
+                    problems.append(f"9c {name}: K1 disagrees with its "
+                                    f"plain version")
+        finally:
+            k1.GpgScanContext._launch = launch1
+        # each recorded launch against the plain version on its inputs
+        for j, (ctx, fx, sc, iy) in enumerate(rec):
+            act = ctx.active
+            got1, want1 = launch1(ctx, fx, sc, iy), plain1(ctx, fx, sc, iy)
+            torch.cuda.synchronize()
+            print(f"9c K1 launch {j} (scan_is_y={iy}, {sc.shape[1]} shifts): "
+                  f"{int(act.sum())} active frames of {ctx.f}, counts "
+                  f"{int(want1[act].sum())}, equal to the plain version on "
+                  f"the active frames: {torch.equal(got1[act], want1[act])}",
+                  flush=True)
+            if not torch.equal(got1[act], want1[act]):
+                problems.append(f"9c: K1 launch {j} disagrees with its "
+                                f"plain version")
+        out["k1_ms"] = sum(cuda_ms(torch, lambda: launch1(ctx, fx, sc, iy),
+                                   iters=20) for ctx, fx, sc, iy in rec)
+        out["k1_plain_ms"] = sum(cuda_ms(torch, lambda: plain1(
+            ctx, fx, sc, iy), iters=2, warm=1) for ctx, fx, sc, iy in rec)
+        print(f"9c K1 on the labeling path ({card}): {len(rec)} launches, "
+              f"{out['k1_ms']:.4f} ms in all with the wrapper (frames per "
+              f"call {[c[0].f for c in rec[::3]]}), plain version "
+              f"{out['k1_plain_ms']:.3f} ms", flush=True)
+
+        # d. ground truth of 9c's candidates, the torus at a pose
+        frames = np.concatenate([c.frames[c.valid].cpu().numpy()
+                                 for c in cands.values()])[:64]
+        ang = 0.4
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = [[1, 0, 0], [0, np.cos(ang), -np.sin(ang)],
+                        [0, np.sin(ang), np.cos(ang)]]
+        pose[:3, 3] = [0.3, -0.1, 0.2]
+        rot, tr = pose[:3, :3], pose[:3, 3]
+        fw = frames @ rot.T
+        fw[:, [0, 4]] += tr
+        pts = (up_cpu.origin + up_cpu.resolution
+               * up_cpu.surface_points).numpy()
+        pts_w = (pts @ rot.T + tr).astype(np.float32)
+        disc = ("obj_idx", "label_valid", "fc_label", "fc_good")
+
+        def gt(sdf):
+            return ground_truth_quality(fw, [(sdf, pose)], gripper, pts_w,
+                                        fc_list=fc)
+
+        fo_card, fo_cpu = [], []
+        with record_metric(qm, "ferrari_canny_l1_force_only",
+                           fo_card) as metric3:
+            g_card = gt(up_card)
+        with record_metric(qm, "ferrari_canny_l1_force_only", fo_cpu):
+            g_cpu = gt(up_cpu)
+        nudged = [gt(s) for s in nudged_sdfs(up_cpu, "cpu")]
+        gkeys = disc + ("center_sdf",)
+        out["9d"] = hold_routes(problems, "9d ground_truth_quality",
+                                sub(g_card, gkeys), sub(g_cpu, gkeys),
+                                rounding(g_cpu, nudged, gkeys, disc), disc)
+        ekeys = ("eps_label", "eps_good")
+        out["9d_eps"] = hold_routes(
+            problems, "9d ground_truth_quality epsilons", sub(g_card, ekeys),
+            sub(g_cpu, ekeys), rounding(g_cpu, nudged, ekeys + disc, disc),
+            ())
+        hold_metric(problems, "9d (eps_label, eps_good) Ferrari-Canny metric",
+                    metric3, fo_card, fo_cpu, dev)
+        print(f"9d: {len(fw)} candidates (9c's valid ones) at the pose; "
+              f"label_valid "
+              f"{int(g_card['label_valid'].sum())}, fc_good "
+              f"{int(g_card['fc_good'].sum())}, centers inside "
+              f"{int((g_card['center_sdf'] < 0).sum())}", flush=True)
+    if problems:
+        fail("phase 9: " + "; ".join(problems))
+    return out
+
+
 def main():
     import torch
 
@@ -1381,6 +2070,7 @@ def main():
           f"max |trans err| = {e_trans:.2e} (atol 1e-4)", flush=True)
     if e_logp > 1e-4 or e_trans > 1e-4:
         fail("golden checkpoint outputs differ on the card")
+    k2_channel_models(torch, dev)
 
     # 5. main path
     n_frames = 3
@@ -1537,15 +2227,28 @@ def main():
 
     # 8. the training path
     train = training_phases(torch, card, "--profile" in sys.argv)
-    print(f"kernel launches by path: frame {launches['pointnet_trunk']} K2 "
-          f"(3 frames), training eval {train['eval_launches']} K2 (4 eval "
-          f"batches)", flush=True)
+    # 9. the labeling path
+    label = labeling_phases(torch, card)
+    print(f"kernel launches by path: frame {launches['gpg_counts']} K1 and "
+          f"{launches['pointnet_trunk']} K2 (3 frames), training eval "
+          f"{train['eval_launches']} K2 (4 eval batches), labeling "
+          f"{label['k1_launches']} K1 (3 SDF GPG sampler calls)", flush=True)
+    print(f"labeling summary ({card}): {label['gps3']:.1f} labeled grasps/s "
+          f"(3-D), {label['gps6']:.1f} (6-D); one torus object "
+          f"{label['9b']['cold_s']:.2f} s cold, {label['9b']['warm_s']:.2f} s "
+          f"warm, {label['9b']['rows']} rows in {label['9b']['rounds']} "
+          f"rounds ({label['9b']['status']}); K1 on the SDF GPG samplers "
+          f"{label['k1_ms']:.4f} ms over {label['k1_launches']} launches",
+          flush=True)
 
     kernels = [
         {"name": "gpg_counts", "route": "cuda",
          "source": "pointnetgpd_tpu_torch/csrc/gpg_counts.cu",
          "replaces": "pointnetgpd_tpu/ops/gpg_counts_pallas.py:156",
-         "launches": launches["gpg_counts"], "max_abs_err": k1_err,
+         "launches": launches["gpg_counts"],
+         "launches_by_path": {"frame": launches["gpg_counts"],
+                              "labeling": label["k1_launches"]},
+         "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
         {"name": "pointnet_trunk", "route": "cuda",

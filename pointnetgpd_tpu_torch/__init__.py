@@ -11,6 +11,7 @@ it that CPU tensors take.
 
 Entry points (``GraspScorer``, ``GraspDetector``, ``gpg_sample_candidates``,
 ``prepare_object_dir``, ``MeshProcessor``, ``mesh_to_sdf``,
-``approximate_convex_decomposition``) run on ``device="cuda"`` unless the
-caller passes ``device="cpu"``.
+``approximate_convex_decomposition``, ``generate_for_object_dir`` and the
+labeling CLI) run on ``device="cuda"`` unless the caller passes
+``device="cpu"``; the labeling functions run on their SDF's device.
 """

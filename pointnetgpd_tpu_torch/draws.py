@@ -28,6 +28,32 @@ The draws, with the JAX package's line that makes them:
   independent already, so it returns itself.
 - ``dropout_keep(shape)``: a bool keep mask, p = 0.5 (``models/gpd.py:69-72``).
 
+The labeling path's draws (``grasping/samplers.py`` unless named):
+
+- ``surface_index(n_surface, n)``: (n,) antipodal contact cells in
+  ``[0, n_surface)`` (``:91``).
+- ``antipodal_perturb(n)``: (n, 3) uniforms that perturb the contact by
+  half a cell (``:93-95``).
+- ``antipodal_cone(n)``: (theta, r) uniforms, each (n,), of the axis drawn
+  in the friction cone (``:109-111``).
+- ``antipodal_flip(n)``: (n,) uniforms of the axis flip (``:115``).
+- ``approach_perm(n, a)``: (n, a) permutations of the approach-angle
+  candidates (``:129-130``).
+- ``uniform_pairs(n_surface, n)``: two (n,) surface-cell draws
+  (``:171-172``); ``approach_choice(n, a)``: (n,) candidates in ``[0, a)``
+  (``:179-180``).
+- ``gaussian_normals(n)``: (centers, axes) standard normals, each (n, 3)
+  (``:203-205``).
+- ``surface_subset(n, k)``: k distinct surface cells of n (``:707-709``).
+- ``height_bias()``: the standard normal of the selected seed height
+  (``:797-810``).
+- ``randn(*shape)``: float64 standard normals, the ``rng.randn`` of
+  ``grasping/random_variables.py`` (``:61-90``).
+- ``next_round()``: the source of one more fixed-budget sampling round
+  (``samplers.py:859``, ``pipelines/generate_dataset.py:90``, each a
+  ``split`` of the key); the default source's stream continues, so it
+  returns itself.
+
 The trainer takes one ``Draws`` for its crops; its model draws nothing
 else (PointNet has no dropout, and the GPD baseline trains without it, as
 in the JAX package).
@@ -80,3 +106,43 @@ class Draws:
 
     def dropout_keep(self, shape):
         return self._rand(*shape) < 0.5
+
+    def surface_index(self, n_surface: int, n: int):
+        return torch.randint(0, n_surface, (n,), generator=self.gen,
+                             device=self.device)
+
+    def antipodal_perturb(self, n: int):
+        return self._rand(n, 3)
+
+    def antipodal_cone(self, n: int):
+        return self._rand(n), self._rand(n)
+
+    def antipodal_flip(self, n: int):
+        return self._rand(n)
+
+    def approach_perm(self, n: int, a: int):
+        return torch.argsort(self._rand(n, a), dim=1)
+
+    def uniform_pairs(self, n_surface: int, n: int):
+        return self.surface_index(n_surface, n), self.surface_index(n_surface, n)
+
+    def approach_choice(self, n: int, a: int):
+        return torch.randint(0, a, (n,), generator=self.gen,
+                             device=self.device)
+
+    def gaussian_normals(self, n: int):
+        return (torch.randn((n, 3), generator=self.gen, device=self.device),
+                torch.randn((n, 3), generator=self.gen, device=self.device))
+
+    def surface_subset(self, n: int, k: int):
+        return torch.randperm(n, generator=self.gen, device=self.device)[:k]
+
+    def height_bias(self):
+        return torch.randn((), generator=self.gen, device=self.device)
+
+    def randn(self, *shape):
+        return torch.randn(shape, generator=self.gen, device=self.device,
+                           dtype=torch.float64).cpu().numpy()
+
+    def next_round(self):
+        return self

@@ -1,17 +1,28 @@
-"""GPG candidate sampling on a raw point cloud (the online path).
+"""Grasp candidate samplers: fixed-budget batched rejection sampling.
 
-Port of ``pointnetgpd_tpu/grasping/samplers.py`` ``gpg_sample_candidates``
-(:222-668; the reference's GpgGraspSamplerPcl.sample_grasps,
-grasp_sampler.py:1389-1656), single device. Every dy offset, approach step
-and the final check is a shifted-box count against one rotation of the
-cloud per (seed, theta) frame, computed by ``ops.gpg_counts`` (kernel K1 on
-the card, its plain version on the CPU).
+Port of ``pointnetgpd_tpu/grasping/samplers.py`` (reference:
+dex-net/src/dexnet/grasping/grasp_sampler.py), single device. Each sampler
+evaluates a fixed budget of attempts as one batched call and returns the
+attempts with a validity mask; retries are a host loop (``sample_until``).
 
-Kept from the JAX version: ``seed_bias``, the ``debug`` funnel, the active
-frame compaction (frames that cannot be valid are moved behind the others
-and get no counts on the card) and the Morton seed order. Seed selection
-takes its uniforms from ``draws.seed_uniform``. Neighbor selection is always
-exact. The SDF-based samplers come in a later slice.
+- ``antipodal_sample_grasps``: the dataset sampler (AntipodalGraspSampler,
+  grasp_sampler.py:621-803).
+- ``uniform_sample_grasps`` / ``gaussian_sample_grasps``: random surface
+  pairs / Gaussian centers (grasp_sampler.py:459-618).
+- ``gpg_sample_candidates``: GPG on a raw point cloud, the online path
+  (GpgGraspSamplerPcl.sample_grasps, grasp_sampler.py:1389-1656). Every dy
+  offset, approach step and the final check is a shifted-box count against
+  one rotation of the cloud per (seed, theta) frame, computed by
+  ``ops.gpg_counts`` (kernel K1 on the card, its plain version on the CPU).
+  Kept from the JAX version: ``seed_bias``, the ``debug`` funnel, the
+  active frame compaction and the Morton seed order; neighbor selection is
+  always exact.
+- ``gpg_sample_grasps_sdf`` / ``point_sample_grasps_sdf``: the same GPG loop
+  on an SDF's surface (grasp_sampler.py:806-1170), so they launch K1 too.
+
+Every draw comes from a ``draws.Draws`` method. Reference quirk kept: the
+approach angles are drawn from {-90..90 step 30} and used as radians
+(grasp_sampler.py:757-761).
 """
 
 from __future__ import annotations
@@ -19,14 +30,28 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..draws import Draws
+from ..geometry import sdf as sdf_lib
 from ..ops.cloud import (extreme_eigvecs_sym3x3, min_k, morton_codes,
                          pairwise_d2, seed_window_normals)
-from ..ops.fp import dot3, fma, sumsq3
+from ..ops.fp import dot3, f64, fma, norm3
 from ..ops.gpg_counts import GpgScanContext
+from . import quality
+from .grasp import (approach_collision_free, close_fingers,
+                    grasp_from_contact_and_axis, perpendicular_table)
 from .gripper import Gripper, hand_points, panel_box_array
+
+APPROACH_ANGLE_CANDIDATES = np.arange(-90, 120, 30).astype(np.float32)
+
+
+class SampledGrasps(NamedTuple):
+    configs: torch.Tensor   # (N, 10) grasp configurations
+    contacts: torch.Tensor  # (N, 2, 3) contact points
+    normals: torch.Tensor   # (N, 2, 3) outward contact normals
+    valid: torch.Tensor     # (N,) bool
 
 
 class GpgCandidates(NamedTuple):
@@ -40,10 +65,6 @@ class GpgCandidates(NamedTuple):
 FUNNEL_STAGES = (
     "frames", "seed_above_table", "frame_estimate", "dy_window",
     "downward_guard", "approach_hit", "open_region", "no_collision")
-
-
-def _norm(v):
-    return torch.sqrt(sumsq3(v))
 
 
 def _matvec(rot, v):
@@ -68,6 +89,40 @@ def _axis_rotations(axis, angles):
     return fma(1 - c, outer, fma(c, eye, s * kx))
 
 
+def _covariance_frames(points, normals, seed_idx, seeds_xyz, knn, r_ball,
+                       camera_pos, normal_k, normal_window, bbox):
+    """r-ball normal covariance -> per-seed local frame
+    (grasp_sampler.py:1467-1506): (frame ok, normal, major, minor)."""
+    if normals is None:
+        if camera_pos is None:
+            raise ValueError(
+                "gpg_sample_candidates(normals=None) needs camera_pos")
+        if normal_window <= 0:
+            raise ValueError(
+                "gpg_sample_candidates(normals=None) estimates normals "
+                "inside seed windows and needs normal_window > 0")
+        pd2, nn, seed_normals = seed_window_normals(
+            points, seed_idx, camera_pos, k=normal_k, knn=knn,
+            window=normal_window, bbox=bbox)
+    else:
+        pd2, nbr = min_k(pairwise_d2(seeds_xyz, points), knn)
+        nn = normals[nbr]
+        seed_normals = normals[seed_idx]
+    # self-exclusion threshold 1e-8 m^2: the matmul-form d2 carries ~1e-9
+    # fp32 cancellation noise at 0.2 m scale
+    w = ((pd2 <= r_ball * r_ball) & (pd2 > 1e-8)).to(points.dtype)
+    nn = nn / torch.clamp(norm3(nn), min=1e-12)[..., None]
+    m = torch.einsum("sp,spi,spj->sij", w, nn, nn)
+    m_ok = torch.sum(torch.abs(m), dim=(1, 2)) > 0
+    minor, normal = extreme_eigvecs_sym3x3(m)
+    major = torch.linalg.cross(minor, normal)
+    major = major / torch.clamp(norm3(major), min=1e-12)[..., None]
+    flip = torch.sum(seed_normals * normal, dim=-1) < 0
+    normal = torch.where(flip[:, None], -normal, normal)
+    minor = torch.where(flip[:, None], -minor, minor)
+    return m_ok, normal, major, minor
+
+
 def gpg_sample_candidates(
     points,
     normals,
@@ -84,6 +139,7 @@ def gpg_sample_candidates(
     min_points_above_table: float = 0.010,
     min_open_points: int = 10,
     r_ball: float | None = None,
+    point_frames=None,
     camera_pos=None,
     bbox=None,
     normal_k: int = 30,
@@ -100,6 +156,9 @@ def gpg_sample_candidates(
     normals: (P, 3) camera-consistent normals, or None to estimate them
         lazily in the seed windows (``ops.cloud.seed_window_normals``;
         needs ``camera_pos`` and ``normal_window > 0``).
+    point_frames: optional (P, 3, 3) per-point [normal, major, minor] frames
+        (e.g. SDF curvature frames) that replace the r-ball covariance
+        estimate.
     draws: the source of the seed uniforms (default ``Draws(seed)``).
     Returns ``GpgCandidates`` of num_seeds * n_theta frames in the random
     seed-selection order; with ``debug=True`` also a funnel dict keyed by
@@ -156,36 +215,15 @@ def gpg_sample_candidates(
                        device=dev) * gripper.finger_width
     n_dy = dys.shape[0]
 
-    # r-ball normal covariance -> local frame (grasp_sampler.py:1467-1506)
     seeds_xyz = points[seed_idx]                                  # (S, 3)
-    knn = min(max_neighbors, p_total)
-    if normals is None:
-        if camera_pos is None:
-            raise ValueError(
-                "gpg_sample_candidates(normals=None) needs camera_pos")
-        if normal_window <= 0:
-            raise ValueError(
-                "gpg_sample_candidates(normals=None) estimates normals "
-                "inside seed windows and needs normal_window > 0")
-        pd2, nn, seed_normals = seed_window_normals(
-            points, seed_idx, camera_pos, k=normal_k, knn=knn,
-            window=normal_window, bbox=bbox)
+    if point_frames is not None:
+        seed_frames = point_frames[seed_idx]                      # (S, 3, 3)
+        seed_m_ok = norm3(seed_frames[:, 0]) > 0.5
+        normal, major, minor = seed_frames.unbind(dim=1)
     else:
-        pd2, nbr = min_k(pairwise_d2(seeds_xyz, points), knn)
-        nn = normals[nbr]
-        seed_normals = normals[seed_idx]
-    # self-exclusion threshold 1e-8 m^2: the matmul-form d2 carries ~1e-9
-    # fp32 cancellation noise at 0.2 m scale
-    w = ((pd2 <= r_ball * r_ball) & (pd2 > 1e-8)).to(dtype)
-    nn = nn / torch.clamp(_norm(nn), min=1e-12)[..., None]
-    m = torch.einsum("sp,spi,spj->sij", w, nn, nn)
-    seed_m_ok = torch.sum(torch.abs(m), dim=(1, 2)) > 0
-    minor, normal = extreme_eigvecs_sym3x3(m)
-    major = torch.linalg.cross(minor, normal)
-    major = major / torch.clamp(_norm(major), min=1e-12)[..., None]
-    flip = torch.sum(seed_normals * normal, dim=-1) < 0
-    normal = torch.where(flip[:, None], -normal, normal)
-    minor = torch.where(flip[:, None], -minor, minor)
+        seed_m_ok, normal, major, minor = _covariance_frames(
+            points, normals, seed_idx, seeds_xyz, min(max_neighbors, p_total),
+            r_ball, camera_pos, normal_k, normal_window, bbox)
 
     # (seed, theta) -> F frames, seed-major; rows [t_normal, t_major, minor]
     rot = _axis_rotations(minor, thetas)                          # (S,T,3,3)
@@ -262,7 +300,7 @@ def gpg_sample_candidates(
     tx = -min_pos[:, 2] * t_normal[:, 0] / nz_safe + min_pos[:, 0]
     ty = -min_pos[:, 2] * t_normal[:, 1] / nz_safe + min_pos[:, 1]
     p_table = torch.stack([tx, ty, torch.zeros_like(tx)], dim=1)
-    dis_go_back = _norm(min_pos - p_table) + safety_dis_above_table
+    dis_go_back = norm3(min_pos - p_table) + safety_dis_above_table
     need_adjust = min_pos[:, 2] < safety_dis_above_table
     bc_mod = torch.where(need_adjust[:, None],
                          fma(t_normal, -dis_go_back[:, None], bc2), bc2)
@@ -295,3 +333,335 @@ def gpg_sample_candidates(
         funnel[name] = sums[i].to(torch.int32)
     funnel["seed_heights"] = points[seed_idx][unsort][:, 2]
     return cands, funnel
+
+
+# ---------------------------------------------------------------------------
+# Antipodal / uniform / Gaussian samplers on an SDF (dataset generation)
+# ---------------------------------------------------------------------------
+
+def _empty_sampled(n, dev):
+    z3 = torch.zeros((n, 2, 3), device=dev)
+    return SampledGrasps(torch.zeros((n, 10), device=dev), z3, z3,
+                         torch.zeros((n,), dtype=torch.bool, device=dev))
+
+
+def antipodal_sample_grasps(
+    sdf: sdf_lib.SdfGrid,
+    draws=None,
+    *,
+    max_width: float,
+    min_width: float = 0.0,
+    friction_coef: float = 2.0,
+    min_contact_dist: float = 0.0025,
+    num_attempts: int = 256,
+    num_samples_loa: int = 40,
+    random_approach_angle: bool = True,
+    seed: int = 0,
+) -> SampledGrasps:
+    """One fixed-budget batch of antipodal rejection sampling
+    (grasp_sampler.py:689-803) on the SDF's device: a random surface point,
+    an axis drawn in its friction cone, both fingers closed along it, and
+    the first collision-free approach angle of a shuffled candidate list;
+    valid where the pair is force closure at ``friction_coef``. ``draws``:
+    the source of the draws (default ``Draws(seed)``)."""
+    dev = sdf.data.device
+    if draws is None:
+        draws = Draws(seed, dev)
+    surface = sdf_lib.grid_to_world(sdf, sdf.surface_points)
+    n_surface = surface.shape[0]
+    if n_surface == 0:     # no surface cells: nothing to sample
+        return _empty_sampled(num_attempts, dev)
+    n = num_attempts
+    idx = draws.surface_index(n_surface, n).to(dev)
+    # perturb_point: x + (res / 2) (U[0,1)^3 - 0.5) (grasp_sampler.py:684-687)
+    x1 = fma(sdf.resolution / 2.0, draws.antipodal_perturb(n).to(dev) - 0.5,
+             surface[idx])
+
+    # contact normal and tangents at x1 (contacts.py:95-185)
+    n_out, n_valid = sdf_lib.surface_normal(sdf, sdf_lib.world_to_grid(sdf, x1))
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=x1.dtype, device=dev)
+    _, t1, t2 = quality.tangents_from_direction(
+        torch.where(n_valid[:, None], -n_out, up))
+
+    # axis from the friction cone (grasp_sampler.py:629-655):
+    # v = -(n_out + r cos(th) t1 + r sin(th) t2), th ~ U(0, 2pi), r ~ U(0, mu)
+    u_theta, u_r = (u.to(dev) for u in draws.antipodal_cone(n))
+    theta = 2.0 * math.pi * u_theta
+    r = friction_coef * u_r
+    v = fma((r * f64(torch.sin, theta))[:, None], t2,
+            fma((r * f64(torch.cos, theta))[:, None], t1, n_out))
+    v = -v / norm3(v)[:, None]
+    # random axis flip (grasp_sampler.py:746-748)
+    v = torch.where((draws.antipodal_flip(n).to(dev) > 0.5)[:, None], -v, v)
+
+    config, _, c_valid = grasp_from_contact_and_axis(
+        sdf, x1, v, max_width, num_samples=num_samples_loa,
+        min_width_world=min_width)
+
+    # approach angle: the first collision-free one of the shuffled
+    # candidates (grasp_sampler.py:757-768); only the approach test depends
+    # on the angle, so the fingers close once
+    if random_approach_angle:
+        cands = torch.as_tensor(APPROACH_ANGLE_CANDIDATES, device=dev)
+        angles = cands[draws.approach_perm(n, len(cands)).to(dev)]
+    else:
+        angles = torch.zeros((n, 1), dtype=x1.dtype, device=dev)
+    ok = approach_collision_free(sdf, config, angles,
+                                 num_samples=num_samples_loa)
+    contacts = close_fingers(sdf, config, num_samples=num_samples_loa,
+                             check_approach=False)
+    first = torch.argmax(ok.to(torch.int8), dim=1)
+    any_ok = ok.any(dim=1) & contacts.found
+    config = config.clone()
+    config[:, 7] = angles[torch.arange(n, device=dev), first]
+    pts, nrm = contacts.points, contacts.normals
+    wide_enough = norm3(x1 - pts[:, 1]) >= min_contact_dist
+    fc = quality.force_closure(pts[:, 0], nrm[:, 0], pts[:, 1], nrm[:, 1],
+                               friction_coef)
+    valid = n_valid & c_valid & any_ok & wide_enough & (fc == 1)
+    return SampledGrasps(config, pts, nrm, valid)
+
+
+def _configs(centers, axes, max_width, angles=None):
+    n = centers.shape[0]
+    angle = (torch.zeros_like(centers[:, :1]) if angles is None
+             else angles[:, None].to(centers.dtype))
+    return torch.cat([centers, axes,
+                      torch.full_like(centers[:, :1], max_width), angle,
+                      torch.zeros((n, 2), dtype=centers.dtype,
+                                  device=centers.device)], dim=1)
+
+
+def uniform_sample_grasps(sdf: sdf_lib.SdfGrid, draws=None, *,
+                          max_width: float, min_width: float = 0.0,
+                          num_attempts: int = 256, num_samples_loa: int = 40,
+                          seed: int = 0) -> SampledGrasps:
+    """Random surface point pairs within the jaw range and a random approach
+    angle (UniformGraspSampler, grasp_sampler.py:459-522)."""
+    dev = sdf.data.device
+    if draws is None:
+        draws = Draws(seed, dev)
+    surface = sdf_lib.grid_to_world(sdf, sdf.surface_points)
+    i1, i2 = (i.to(dev) for i in draws.uniform_pairs(surface.shape[0],
+                                                     num_attempts))
+    p1, p2 = surface[i1], surface[i2]
+    width = norm3(p2 - p1)
+    in_range = (width > min_width) & (width < max_width) & (width > 0)
+    cands = torch.as_tensor(APPROACH_ANGLE_CANDIDATES, device=dev)
+    angles = cands[draws.approach_choice(num_attempts, len(cands)).to(dev)]
+    configs = _configs(0.5 * (p1 + p2),
+                       (p2 - p1) / torch.clamp(width[:, None], min=1e-12),
+                       max_width, angles)
+    contacts = close_fingers(sdf, configs, num_samples=num_samples_loa,
+                             check_approach=False)
+    return SampledGrasps(configs, contacts.points, contacts.normals,
+                         in_range & contacts.found)
+
+
+def gaussian_sample_grasps(sdf: sdf_lib.SdfGrid, draws=None, *,
+                           max_width: float, center_of_mass, principal_dims,
+                           sigma_scale: float = 2.5,
+                           num_attempts: int = 256,
+                           num_samples_loa: int = 40,
+                           seed: int = 0) -> SampledGrasps:
+    """Centers ~ N(COM, (principal_dims / (2 sigma))^2), axes uniform on the
+    sphere (GaussianGraspSampler, grasp_sampler.py:525-618)."""
+    dev = sdf.data.device
+    if draws is None:
+        draws = Draws(seed, dev)
+    z_c, z_a = (z.to(dev) for z in draws.gaussian_normals(num_attempts))
+    f32 = dict(dtype=torch.float32, device=dev)
+    sigma = torch.as_tensor(principal_dims, **f32) / (2.0 * sigma_scale)
+    centers = fma(sigma, z_c, torch.as_tensor(center_of_mass, **f32))
+    axes = z_a / norm3(z_a)[:, None]
+    configs = _configs(centers, axes, max_width)
+    contacts = close_fingers(sdf, configs, num_samples=num_samples_loa,
+                             check_approach=False)
+    return SampledGrasps(configs, contacts.points, contacts.normals,
+                         contacts.found)
+
+
+def sample_grasps_stable_poses(sdf: sdf_lib.SdfGrid, stable_poses, draws=None,
+                               *, max_width: float, num_wanted: int = 25,
+                               max_rounds: int = 8, seed: int = 0,
+                               **antipodal_kwargs):
+    """Antipodal grasps aligned to each stable pose
+    (generate_grasps_stable_poses, grasp_sampler.py:114-151): sample, then
+    set each grasp's approach angle so the hand approaches perpendicular to
+    that pose's table. Returns {pose_index: (N, 10) configs}."""
+    dev = sdf.data.device
+    if draws is None:
+        draws = Draws(seed, dev)
+    configs, _, _ = sample_until(
+        lambda d: antipodal_sample_grasps(sdf, d, max_width=max_width,
+                                          **antipodal_kwargs),
+        draws, num_wanted, max_rounds=max_rounds)
+    configs = torch.as_tensor(configs, dtype=torch.float32, device=dev)
+    out = {}
+    for i, pose in enumerate(stable_poses):
+        r = torch.as_tensor(np.asarray(pose["r"] if isinstance(pose, dict)
+                                       else pose.r), dtype=torch.float32,
+                            device=dev)
+        out[i] = perpendicular_table(configs, r).cpu().numpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# GPG on an SDF's surface
+# ---------------------------------------------------------------------------
+
+def _empty_candidates(dev):
+    return GpgCandidates(torch.zeros((0, 5, 3), device=dev),
+                         torch.zeros((0,), dtype=torch.bool, device=dev))
+
+
+def _sdf_surface_points_and_normals(sdf: sdf_lib.SdfGrid,
+                                    max_points: int = 2048, draws=None):
+    """Surface points (world), outward normals and grid coords of an SDF,
+    a random subset of ``max_points`` where it has more. The normals are
+    the normalized SDF gradient (the JAX package's documented deviation
+    from the reference's plane fit, which blends normals across edges)."""
+    pts_grid = sdf.surface_points
+    n = pts_grid.shape[0]
+    if draws is not None and n > max_points:
+        pts_grid = pts_grid[draws.surface_subset(n, max_points).to(
+            pts_grid.device)]
+    grads = sdf_lib.gradient(sdf, pts_grid)
+    norms = norm3(grads)[:, None]
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=grads.dtype, device=grads.device)
+    normals = torch.where(norms > 1e-9,
+                          grads / torch.clamp(norms, min=1e-12), up)
+    # origin + res * grid, rounded twice: the JAX package computes these
+    # outside jit, where nothing contracts it into an FMA
+    return sdf.origin + sdf.resolution * pts_grid, normals, pts_grid
+
+
+def _visible_filter(pts, normals, camera_pos):
+    """Points whose outward normal faces the camera: GPG works on a viewed
+    surface, so the SDF variants emulate the camera's partial view."""
+    to_cam = torch.as_tensor(camera_pos, dtype=pts.dtype,
+                             device=pts.device) - pts
+    return torch.sum(to_cam * normals, dim=1) > 0
+
+
+def _curvature_frames(sdf: sdf_lib.SdfGrid, pts_grid, normals):
+    """Per-point [normal, major, minor] frames (P, 3, 3) from SDF principal
+    curvature directions: in the tangent plane of the gradient normal, the
+    eigendirection of the projected Hessian with the least |curvature| is
+    the minor axis."""
+    hess = sdf_lib.curvature(sdf, pts_grid, delta=0.5)          # (P, 3, 3)
+    _, t1, t2 = quality.tangents_from_direction(-normals)
+    ht1 = (hess @ t1[..., None])[..., 0]
+    ht2 = (hess @ t2[..., None])[..., 0]
+    s = torch.stack([torch.stack([quality._dot(t1, ht1),
+                                  quality._dot(t1, ht2)], -1),
+                     torch.stack([quality._dot(t2, ht1),
+                                  quality._dot(t2, ht2)], -1)], -2)
+    w, v = torch.linalg.eigh(s)
+    pick = torch.argmin(torch.abs(w), dim=-1)
+    vp = torch.gather(v, 2, pick[:, None, None].expand(-1, 2, 1))[..., 0]
+    minor = vp[:, 0:1] * t1 + vp[:, 1:2] * t2
+    minor = minor / torch.clamp(norm3(minor), min=1e-12)[:, None]
+    major = torch.linalg.cross(minor, normals)
+    major = major / torch.clamp(norm3(major), min=1e-12)[:, None]
+    return torch.stack([normals, major, minor], dim=1)
+
+
+def gpg_sample_grasps_sdf(sdf: sdf_lib.SdfGrid, gripper: Gripper = Gripper(),
+                          *, max_surface_points: int = 2048,
+                          camera_pos=(0.0, 0.0, 1.0),
+                          curvature_frames: bool = False, draws=None,
+                          seed: int = 0, **gpg_kwargs) -> GpgCandidates:
+    """GPG on an SDF object (GpgGraspSampler, grasp_sampler.py:806-982):
+    the cloud variant's loop on the SDF's camera-visible surface points and
+    gradient normals; ``curvature_frames=True`` takes the seed frames from
+    ``_curvature_frames`` instead of the covariance estimate."""
+    dev = sdf.data.device
+    if draws is None:
+        draws = Draws(seed, dev)
+    pts, normals, pts_grid = _sdf_surface_points_and_normals(
+        sdf, max_surface_points, draws)
+    vis = _visible_filter(pts, normals, camera_pos)
+    pts, normals, pts_grid = pts[vis], normals[vis], pts_grid[vis]
+    if pts.shape[0] == 0:     # nothing faces the camera
+        return _empty_candidates(dev)
+    gpg_kwargs.setdefault("r_ball", gripper.hand_height)
+    if curvature_frames:
+        gpg_kwargs["point_frames"] = _curvature_frames(sdf, pts_grid, normals)
+    return gpg_sample_candidates(pts, normals, gripper, draws=draws,
+                                 **gpg_kwargs)
+
+
+def point_sample_grasps_sdf(sdf: sdf_lib.SdfGrid, gripper: Gripper = Gripper(),
+                            *, height_sigma_frac: float = 3.0,
+                            max_surface_points: int = 2048, draws=None,
+                            seed: int = 0, **gpg_kwargs) -> GpgCandidates:
+    """PointGraspSampler (grasp_sampler.py:985-1170): the GPG loop with a
+    Gaussian-over-height bias on the seeds (:1040-1046): points near a
+    height drawn below the top come first, and the uniform seed choice
+    favors them."""
+    dev = sdf.data.device
+    if draws is None:
+        draws = Draws(seed, dev)
+    pts, normals, _ = _sdf_surface_points_and_normals(
+        sdf, max_surface_points, draws)
+    vis = _visible_filter(pts, normals,
+                          gpg_kwargs.pop("camera_pos", (0.0, 0.0, 1.0)))
+    pts, normals = pts[vis], normals[vis]
+    if pts.shape[0] == 0:
+        return _empty_candidates(dev)
+    z = pts[:, 2]
+    z_min, z_max = z.amin(), z.amax()
+    sigma = torch.clamp((z_max - z_min) / height_sigma_frac, min=1e-6)
+    selected = z_max - torch.abs(draws.height_bias().to(dev) * sigma)
+    weight = torch.abs(z - selected) / torch.clamp(z_max - z_min, min=1e-6)
+    order = torch.argsort(weight, stable=True)
+    gpg_kwargs.setdefault("r_ball", gripper.hand_height)
+    return gpg_sample_candidates(pts[order], normals[order], gripper,
+                                 draws=draws, **gpg_kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Host-side accumulation (the reference's while loop)
+# ---------------------------------------------------------------------------
+
+def dedupe_grasps(configs, min_dist: float = 0.0025, alpha: float = 0.05):
+    """Coverage rejection: greedily drop grasps closer than ``min_dist`` to
+    an already kept grasp under the center + axis distance (the pruning of
+    generate_grasps, grasp_sampler.py:153-234, with grasp.py:212-232). The
+    pairwise distances are computed on the configs' device; the greedy pass
+    runs on the host. Returns the kept rows, as the input type."""
+    is_tensor = isinstance(configs, torch.Tensor)
+    cfg = configs if is_tensor else torch.as_tensor(np.asarray(configs))
+    n = cfg.shape[0]
+    if n == 0:
+        return configs
+    centers, axes = cfg[:, 0:3], cfg[:, 3:6]
+    diff = centers[:, None, :] - centers[None, :, :]
+    center_d = norm3(diff)
+    dots = torch.clamp(torch.abs(axes @ axes.T), -1.0, 1.0)
+    dist = fma(alpha, (2.0 / math.pi) * torch.arccos(dots), center_d)
+    close = (~(dist >= min_dist)).cpu().numpy()
+    keep = np.zeros(n, bool)
+    for i in range(n):
+        keep[i] = not close[i, keep].any()
+    if is_tensor:
+        return configs[torch.as_tensor(keep, device=configs.device)]
+    return np.asarray(configs)[keep]
+
+
+def sample_until(sample_fn, draws, num_wanted: int, max_rounds: int = 10):
+    """Run a fixed-budget sampler until ``num_wanted`` valid samples are
+    packed. ``sample_fn(round_draws)`` returns a NamedTuple whose last field
+    is the validity mask; each round takes ``draws.next_round()``. Returns
+    the packed fields as host numpy arrays."""
+    collected = None
+    for _ in range(max_rounds):
+        out = sample_fn(draws.next_round())
+        valid = out[-1].cpu().numpy()
+        packed = [f.cpu().numpy()[valid] for f in out[:-1]]
+        collected = packed if collected is None else [
+            np.concatenate([c, p]) for c, p in zip(collected, packed)]
+        if len(collected[0]) >= num_wanted:
+            break
+    return [c[:num_wanted] for c in collected]

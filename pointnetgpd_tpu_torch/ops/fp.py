@@ -14,6 +14,17 @@ different points. These helpers spell out those roundings:
   order of a dot product or ``sum(x * x)`` over a length-3 axis.
 - ``lin3``: a 3-term add chain ``a0 * x + a1 * y + a2 * z``, contracted as
   ``fma(a2, z, fma(a0, x, a1 * y))``.
+- ``sqrt``: the correctly rounded float32 square root, as XLA and CUDA give
+  it. Torch's vectorized float32 ``sqrt`` on the CPU is off by one ulp in
+  about 1 of 150 cases, so on the CPU it goes through float64 (the float64
+  root rounded to float32 is the correctly rounded float32 root).
+
+- ``f64(fn, x, ...)``: a float32 function evaluated in float64 and rounded
+  to float32. Torch's float32 transcendentals (sin, cos, arccos, ...),
+  reductions and small matmuls round differently on the card and on the
+  CPU; in float64 and rounded once, both give the same bits (but for a
+  double rounding, about 1 case in 2**29), so the labeling path's card
+  route and CPU route take the same discrete decisions.
 
 The CUDA kernels issue the same operations explicitly (``__fmaf_rn``), so the
 kernel and its plain version agree bit for bit.
@@ -48,3 +59,28 @@ def sumsq3(v):
     """``sum(v * v, axis=-1)`` for (..., 3) float32 ``v``."""
     return dot3(v[..., 0], v[..., 0], v[..., 1], v[..., 1],
                 v[..., 2], v[..., 2])
+
+
+def sqrt(x):
+    """Correctly rounded float32 square root."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+    return torch.sqrt(x)
+
+
+def norm3(v):
+    """``sqrt(sum(v * v, axis=-1))`` for (..., 3) float32 ``v``, rounded as
+    ``jnp.linalg.norm`` under ``jit``."""
+    return sqrt(sumsq3(v))
+
+
+def f64(fn, *xs):
+    """``fn(*xs)`` of float32 tensors computed in float64, rounded to
+    float32."""
+    return fn(*(x.to(torch.float64) for x in xs)).to(torch.float32)
+
+
+def dot3v(a, b):
+    """``sum(a * b, axis=-1)`` for (..., 3) float32 ``a``, ``b``."""
+    return dot3(a[..., 0], b[..., 0], a[..., 1], b[..., 1],
+                a[..., 2], b[..., 2])

@@ -438,6 +438,26 @@ def test_k2_kernel_matches_plain_on_card(cuda_device, b, n):
                                atol=ATOL, rtol=ATOL)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 6, 8])
+def test_k2_kernel_input_channels_on_card(cuda_device, c):
+    """K2 takes 1..8 input channels: the Dual trunk's 6, and the edges 1
+    and 8, against the plain version within 1e-4 x (1 + |ref|)."""
+    g = torch.Generator().manual_seed(c)
+    scale = (0.5, 0.1, 0.2, 0.1, 0.1, 0.1)
+    shapes = ((c, 64), (64,), (64, 128), (128,), (128, 1024), (1024,))
+    folded = k2.FoldedTrunk([(torch.randn(sh, generator=g) * s).to(
+        cuda_device) for sh, s in zip(shapes, scale)])
+    x = (torch.randn(37, 300, c, generator=g) * 0.05).to(cuda_device)
+    with torch.no_grad():
+        n0 = k2.launches
+        got = k2.fused_trunk(x, folded)
+        assert k2.launches == n0 + 1
+        want = k2.trunk_reference(x, folded)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=ATOL, rtol=ATOL)
+
+
 # --------------------------------------------------------------------- K3
 
 @pytest.mark.cuda
