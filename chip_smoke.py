@@ -1,6 +1,7 @@
-"""Drive the PyTorch/CUDA port's four paths on one GPU: the online
-grasp-detection frame, the mesh -> SDF voxelizer (object preparation), the
-trainer and dataset labeling.
+"""Drive the PyTorch/CUDA port's paths on one GPU: the online
+grasp-detection frame and its entry points, the mesh -> SDF voxelizer
+(object preparation), the trainer, dataset labeling and the RGB-D -> cloud
+path.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -101,6 +102,41 @@ Phases, in order; any failure exits non-zero:
       its plain version must be equal; K1's time there;
    d. ``ground_truth_quality`` of 9c's valid candidates with the torus at
       a pose, card against the CPU route.
+10. the online path's entry points (``entry_phases``), each K2 (and K1)
+   launch site counted and held to its plain version (kernels swapped by
+   their ``_launch``):
+   a. ``cli.infer.main`` on the golden checkpoint, a 500-point cloud in a
+      temporary .npy, ``--repeat 10``: K2 twice; prediction and votes equal
+      to the plain route's, probabilities within 1e-4; then
+      ``--load-model`` on phase 8's model path, resolved to its newest
+      step, predicting as the trained model;
+   b. ``score_clouds`` of a DualPointNetCls on (40, 500, 6) clouds (K2
+      once, probabilities within 1e-4 of the plain route) and of the golden
+      scorer's ``as_dtype(torch.bfloat16)`` (K2 twice in float32, classes
+      equal to the plain route; its class agreement with fp32 printed);
+   c. ``GraspDetector.warmup(max_points=20000)`` at cloud_pad_to=4096 and
+      the first live tabletop frames, each in a fresh process
+      (``--warmup-child``), with and without the warmup: buckets, seconds,
+      K1 3 and K2 2 launches per bucket and per frame, the first frame
+      equal to its plain route;
+   d. ``run_ros_node`` through in-process stand-ins for the ROS modules,
+      fed the tabletop as a PointCloud2, 3 frames serially and with
+      ``pipeline=True``: K1 3 and K2 2 launches per frame, the published
+      best grasp and score equal to ``process_frame``'s first ranked grasp
+      (and the score within 1e-4 of the plain route's);
+11. the RGB-D -> cloud path (``cloud_phases``), card against the CPU route:
+   a. a 640x480 depth frame (a sloping table with a box on it) registered
+      into a 1280x1024 colour frame through a non-identity transform: the
+      filtered and registered depth equal pixel for pixel, the cloud
+      within 1e-6 x (1 + |ref|); each function and ``frame_cloud`` timed
+      with CUDA events;
+   b. the writers: the .npy equal to the .pcd's xyz, the .ply's vertex
+      count;
+   c. ``render_object_clouds`` on phase 7's torus, 6 views: equal files
+      from the card and the CPU route, every point within 4 x the 3e-4
+      noise plus a pixel's footprint of the analytic torus, the rasterizer
+      built under ``pointnetgpd_tpu_torch/_build/``, ``native/renderer/``
+      unchanged.
 
 Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
 slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
@@ -1018,10 +1054,12 @@ def device_busy(torch, prof, skip=()):
 
 
 def training_phases(torch, card, profile, dev="cuda", batch=128,
-                    cloud=20000):
+                    cloud=20000, keep_dir=None):
     """Phase 8: the trainer at the 1v variant's full width (see the module
     docstring): TrainConfig's defaults, ``batch`` samples of ``cloud``-point
-    clouds. Returns the K2 numbers at the trainer's eval shape."""
+    clouds. Returns the K2 numbers at the trainer's eval shape, the
+    directory ``fit`` wrote its checkpoints to (under ``keep_dir``, which
+    outlives the phase, where given) and the trained model."""
     import copy
     import tempfile
 
@@ -1041,7 +1079,7 @@ def training_phases(torch, card, profile, dev="cuda", batch=128,
         # a. fit: 2 epochs x 5 steps, 2 eval batches per epoch
         cfg = TrainConfig(epochs=2, steps_per_epoch=5, eval_steps=2,
                           log_interval=5, batch_size=batch, device=dev.type,
-                          model_path=os.path.join(tmp, "m"),
+                          model_path=os.path.join(keep_dir or tmp, "m"),
                           log_dir=os.path.join(tmp, "l"), tag="smoke")
         n_pts = cfg.grasp_points_num
         data = SyntheticGraspData(batch, cloud_points=cloud, learnable=True,
@@ -1141,6 +1179,7 @@ def training_phases(torch, card, profile, dev="cuda", batch=128,
               f"{e_ck:.2e}", flush=True)
         if not same or e_ck > 1e-6:
             fail("the scorer does not reproduce the trained model")
+        trained = copy.deepcopy(tr.state.model).eval()
         tr.close()
 
         # d. one step on the card against the same step on the CPU
@@ -1266,7 +1305,7 @@ def training_phases(torch, card, profile, dev="cuda", batch=128,
     print(flush=True)
     return {"eval_launches": launches["pointnet_trunk"], "ms": k2_ms,
             "plain_ms": k2_plain, "library_ms": k2_lib, "bound_ms": k2_bound,
-            "err": k2_err}
+            "err": k2_err, "model_path": cfg.model_path, "model": trained}
 
 
 class Tape:
@@ -1930,6 +1969,613 @@ def labeling_phases(torch, card, dev="cuda", attempts=256, torus=TORUS,
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 10: the online path's entry points
+
+
+class _RosMsg:
+    """Attribute-auto-vivifying stand-in for a ROS message struct."""
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        v = _RosMsg()
+        setattr(self, name, v)
+        return v
+
+
+def fake_ros(cloud_msg):
+    """In-process stand-ins for rospy, sensor_msgs.msg, visualization_msgs.msg
+    and gpd_grasp_msgs.msg (the card's machine has no ROS), installed into
+    ``sys.modules``. Returns (published messages by topic, the modules'
+    names). ``rospy.wait_for_message`` returns ``cloud_msg`` (or, before
+    one is set, raises)."""
+    import types
+
+    published = {}
+    params = {}
+
+    class Publisher:
+        def __init__(self, topic, data_class, queue_size=0):
+            if not isinstance(data_class, type):
+                raise TypeError(f"invalid message class: {data_class!r}")
+            self.topic = topic
+            published.setdefault(topic, [])
+
+        def publish(self, msg):
+            published[self.topic].append(msg)
+
+    class Rate:
+        def __init__(self, hz):
+            pass
+
+        def sleep(self):
+            pass
+
+    class Marker(_RosMsg):
+        CUBE, ADD = 1, 0
+
+    class MarkerArray:
+        def __init__(self):
+            self.markers = []
+
+    class GraspConfigList(_RosMsg):
+        def __init__(self):
+            self.grasps = []
+
+    class PointCloud2(_RosMsg):
+        pass
+
+    class PointField:
+        def __init__(self, **kw):
+            self.__dict__.update(kw)
+
+    rospy = types.ModuleType("rospy")
+    rospy.init_node = lambda name, anonymous=False: None
+    rospy.Publisher, rospy.Rate = Publisher, Rate
+    rospy.set_param = params.__setitem__
+    rospy.get_param = lambda name, *d: params.get(name, d[0] if d else None)
+    rospy.is_shutdown = lambda: False
+    rospy.loginfo = lambda *a: None
+    rospy.wait_for_message = lambda topic, cls: cloud_msg[0]
+    rospy.Duration = type("Duration", (),
+                          {"from_sec": staticmethod(lambda s: s)})
+    rospy.Time = type("Time", (), {"now": staticmethod(lambda: 0.0)})
+    mods = {"rospy": rospy}
+    for pkg, names in (("sensor_msgs", {"PointCloud2": PointCloud2,
+                                        "PointField": PointField}),
+                       ("visualization_msgs", {"Marker": Marker,
+                                               "MarkerArray": MarkerArray}),
+                       ("gpd_grasp_msgs", {"GraspConfig": _RosMsg,
+                                           "GraspConfigList":
+                                               GraspConfigList})):
+        mods[pkg] = types.ModuleType(pkg)
+        mods[pkg + ".msg"] = msg = types.ModuleType(pkg + ".msg")
+        for k, v in names.items():
+            setattr(msg, k, v)
+    sys.modules.update(mods)
+    return published, list(mods)
+
+
+def warmup_child(mode, dev, pad, max_points):
+    """One fresh process (``--warmup-child``): the golden scorer's detector
+    at ``cloud_pad_to=pad``; with mode ``warm``, ``warmup(max_points)``
+    first. Times the first two live frames on the tabletop, holds the first
+    against the same frame with both kernels swapped for their plain
+    versions, and prints one JSON line."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
+    from pointnetgpd_tpu_torch.ops import gpg_counts as k1
+    from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
+    from pointnetgpd_tpu_torch.robot.node import DetectorConfig, GraspDetector
+
+    def sync():
+        if dev != "cpu":
+            torch.cuda.synchronize()
+
+    t_start = time.perf_counter()
+    scorer = GraspScorer.from_checkpoint(os.path.join(
+        HERE, "tests", "fixtures", "golden_pointnet_3class.npz"), device=dev,
+        k=3)
+    det = GraspDetector(scorer, config=DetectorConfig(cloud_pad_to=pad))
+    pts, cam = tabletop_scene()
+    out = {"mode": mode}
+    if mode == "warm":
+        zero_counts()
+        t0 = time.perf_counter()
+        out["buckets"] = det.warmup(max_points=max_points)
+        sync()
+        out["warmup_s"] = time.perf_counter() - t0
+        out["warmup_launches"] = read_counts()
+    frames = []
+    for s in range(2):
+        zero_counts()
+        t0 = time.perf_counter()
+        res = det.process_frame(pts, cam, seed=s)
+        sync()
+        frames.append((time.perf_counter() - t0) * 1e3)
+        if s == 0:
+            first, out["frame_launches"] = res, read_counts()
+    out["first_ms"], out["second_ms"] = frames
+    out["since_start_s"] = time.perf_counter() - t_start
+
+    def plain1(ctx, fx, sc, is_y):
+        return k1.gpg_scan_counts_torch(ctx.points, ctx.seeds, ctx.rot_rows,
+                                        fx, sc, ctx.boxes, scan_is_y=is_y)
+
+    launch1, launch2 = k1.GpgScanContext._launch, k2._launch
+    k1.GpgScanContext._launch, k2._launch = plain1, k2.trunk_reference
+    try:
+        plain = det.process_frame(pts, cam, seed=0)
+    finally:
+        k1.GpgScanContext._launch, k2._launch = launch1, launch2
+    out["plain_equal"] = bool(
+        first["n_valid"] == plain["n_valid"]
+        and np.array_equal(first["pred"], plain["pred"])
+        and np.array_equal(first["counts"], plain["counts"])
+        and np.abs(first["all_scores"] - plain["all_scores"]).max() <= 1e-4)
+    print("WARMUP_CHILD " + json.dumps(out), flush=True)
+
+
+def entry_phases(torch, card, dev="cuda", ckpt_dir=None, trained=None,
+                 frame_ms=None, pad=4096, max_points=20000, n_points=500,
+                 g=40, scene=None):
+    """Phase 10: the online path's entry points on ``dev``, each launch site
+    of K2 (and K1) held to its plain version. ``ckpt_dir``/``trained``:
+    the directory phase 8's ``fit`` wrote and the model it trained (10a
+    loads the one through ``cli.infer`` and compares with the other).
+    Returns the launch counts by entry point. Sizes (and 10d's ``scene``,
+    default the tabletop) are parameters so that a CPU rehearsal can run it
+    small."""
+    import contextlib
+    import copy
+    import io
+    import tempfile
+
+    from pointnetgpd_tpu_torch.cli import infer
+    from pointnetgpd_tpu_torch.draws import Draws
+    from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
+    from pointnetgpd_tpu_torch.models.pointnet import DualPointNetCls
+    from pointnetgpd_tpu_torch.ops import gpg_counts as k1
+    from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
+    from pointnetgpd_tpu_torch.robot import node
+    from pointnetgpd_tpu_torch.robot.pointclouds import (
+        xyz_array_to_pointcloud2)
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    launch1, launch2 = k1.GpgScanContext._launch, k2._launch
+    ckpt = os.path.join(HERE, "tests", "fixtures",
+                        "golden_pointnet_3class.npz")
+    problems, launches = [], {}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    @contextlib.contextmanager
+    def plain_kernels():
+        def plain1(ctx, fx, sc, is_y):
+            return k1.gpg_scan_counts_torch(ctx.points, ctx.seeds,
+                                            ctx.rot_rows, fx, sc, ctx.boxes,
+                                            scan_is_y=is_y)
+
+        k1.GpgScanContext._launch, k2._launch = plain1, k2.trunk_reference
+        try:
+            yield
+        finally:
+            k1.GpgScanContext._launch, k2._launch = launch1, launch2
+
+    def expect(name, want):
+        # the counters count launches on the card; a CPU rehearsal has none
+        got = read_counts()
+        launches[name] = got
+        if any(got[k] != (v if on_card else 0) for k, v in want.items()):
+            problems.append(f"{name}: launches {got}, expected {want}")
+        return got
+
+    # a. cli.infer on the golden checkpoint, then on phase 8's directory
+    calls = []
+    real_score = GraspScorer.score_clouds
+
+    def recorded(self, *a, **kw):
+        out = real_score(self, *a, **kw)
+        calls.append(out)
+        return out
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        GraspScorer.score_clouds = recorded
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = infer.main(argv if on_card
+                                else argv + ["--device", dev.type])
+        finally:
+            GraspScorer.score_clouds = real_score
+        sync()
+        if rc != 0:
+            problems.append(f"cli.infer {argv} returned {rc}")
+        return buf.getvalue().splitlines(), calls[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cloud = np.random.RandomState(0).uniform(
+            -0.04, 0.04, (n_points, 3)).astype(np.float32)
+        cloud_path = os.path.join(tmp, "cloud.npy")
+        np.save(cloud_path, cloud)
+        argv = ["--load-model", ckpt, "--input", cloud_path, "--repeat",
+                "10", "--seed", "3"]
+        zero_counts()
+        t0 = time.perf_counter()
+        lines, got = run_cli(argv)
+        cold_s = time.perf_counter() - t0
+        expect("10a cli.infer", {"pointnet_trunk": 2, "gpg_counts": 0})
+        t0 = time.perf_counter()
+        run_cli(argv)
+        warm_s = time.perf_counter() - t0
+        with plain_kernels():
+            _, want = run_cli(argv)
+        e_prob = float(np.abs(got[1] - want[1]).max())
+        same = (np.array_equal(got[0], want[0])
+                and np.array_equal(got[2], want[2]))
+        print(f"10a cli.infer --load-model golden_pointnet_3class.npz "
+              f"--repeat 10 ({n_points}-point cloud): "
+              f"{' | '.join(lines)}; K2 launches "
+              f"{launches['10a cli.infer']['pointnet_trunk']}; vs the plain "
+              f"route: prediction and votes equal {same}, max |prob err| "
+              f"{e_prob:.2e} (1e-4); {cold_s:.3f} s cold, {warm_s:.4f} s "
+              f"warm per call, host clock, model load included ({card})",
+              flush=True)
+        if not same or e_prob > 1e-4:
+            problems.append("10a: cli.infer differs from its plain route")
+        if ckpt_dir is not None:
+            lines, got = run_cli(["--load-model", ckpt_dir, "--k", "2",
+                                  "--num-point", "750", "--input",
+                                  cloud_path, "--repeat", "10", "--seed",
+                                  "4"])
+            ref = GraspScorer(model=trained, k=2, num_points=750, repeat=10,
+                              device=dev).score_clouds(
+                cloud[None], draws=Draws(4, dev))
+            same = all(np.array_equal(a, b) for a, b in zip(got, ref))
+            print(f"10a cli.infer --load-model <phase 8's model path>: "
+                  f"{lines[0]}; {' | '.join(lines[1:])}; predicts as the "
+                  f"trained model: {same}", flush=True)
+            if not same or not lines[0].startswith("resolved "):
+                problems.append("10a: the trained directory does not "
+                                "predict as the trained model")
+
+    # b. a dual scorer on (G, P, 6) clouds, and the bf16 scorer
+    torch.manual_seed(0)
+    dual = DualPointNetCls(k=2)
+    with torch.no_grad():
+        for name, buf in dual.named_buffers():
+            if name.endswith("running_mean"):
+                buf.normal_(0.0, 0.1)
+            elif name.endswith("running_var"):
+                buf.uniform_(0.5, 1.5)
+    gen = np.random.RandomState(1)
+    clouds6 = (gen.randn(g, n_points, 6) * 0.02).astype(np.float32)
+    clouds3 = gen.uniform(-0.04, 0.04, (g, n_points, 3)).astype(np.float32)
+    ds = GraspScorer(model=dual, k=2, device=dev)
+    zero_counts()
+    got = ds.score_clouds(clouds6, seed=5)
+    sync()
+    expect("10b dual", {"pointnet_trunk": 1})
+    with plain_kernels():
+        want = ds.score_clouds(clouds6, seed=5)
+    e_dual = float(np.abs(got[1] - want[1]).max())
+    scorer = GraspScorer.from_checkpoint(ckpt, device=dev, k=3)
+    s16 = scorer.as_dtype(torch.bfloat16)
+    zero_counts()
+    got16 = s16.score_clouds(clouds3, seed=6)
+    sync()
+    expect("10b bf16", {"pointnet_trunk": 2})
+    with plain_kernels():
+        want16 = s16.score_clouds(clouds3, seed=6)
+    p32 = scorer.score_clouds(clouds3, seed=6)[0]
+    agree = float((got16[0] == p32).mean())
+    print(f"10b dual scorer (DualPointNetCls, k=2) on ({g}, {n_points}, 6): "
+          f"K2 launches {launches['10b dual']['pointnet_trunk']}, max |prob "
+          f"err| vs plain {e_dual:.2e} (1e-4), classes equal "
+          f"{np.array_equal(got[0], want[0])}; bf16 scorer on ({g}, "
+          f"{n_points}, 3): K2 launches "
+          f"{launches['10b bf16']['pointnet_trunk']}, classes equal to the "
+          f"plain route {np.array_equal(got16[0], want16[0])}, class "
+          f"agreement with fp32 {agree:.3f}", flush=True)
+    if e_dual > 1e-4 or not np.array_equal(got[0], want[0]):
+        problems.append("10b: the dual scorer differs from its plain route")
+    if not np.array_equal(got16[0], want16[0]):
+        problems.append("10b: the bf16 scorer differs from its plain route")
+
+    # c. warmup, each mode in a fresh process: what warmup takes away from
+    # the first live frame shows only in a process that has not run it yet
+    child = {}
+    for mode in ("cold", "warm"):
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--warmup-child",
+             mode, dev.type, str(pad), str(max_points)],
+            capture_output=True, text=True, timeout=600)
+        tagged = [ln for ln in res.stdout.splitlines()
+                  if ln.startswith("WARMUP_CHILD ")]
+        if res.returncode != 0 or not tagged:
+            fail(f"10c warmup child ({mode}) failed: "
+                 f"{(res.stdout + res.stderr)[-3000:]}")
+        child[mode] = json.loads(tagged[0].split(" ", 1)[1])
+        child[mode]["process_s"] = time.perf_counter() - t0
+    w, c = child["warm"], child["cold"]
+    n_b = len(w["buckets"])
+    print(f"10c GraspDetector.warmup(max_points={max_points}) at "
+          f"cloud_pad_to={pad}, fresh process: buckets {w['buckets']} in "
+          f"{w['warmup_s']:.3f} s, launches {w['warmup_launches']}; first "
+          f"live frame after it {w['first_ms']:.2f} ms, second "
+          f"{w['second_ms']:.2f} ms; without warmup (fresh process) first "
+          f"frame {c['first_ms']:.2f} ms, second {c['second_ms']:.2f} ms; "
+          f"phase 6's warm frame "
+          f"{'n/a' if frame_ms is None else f'{frame_ms:.2f}'} ms (host "
+          f"clock) ({card})", flush=True)
+    if w["buckets"] != list(range(pad, max_points + pad, pad)):
+        problems.append(f"10c: buckets {w['buckets']}")
+    for name, want_n in (("warmup_launches", n_b), ("frame_launches", 1)):
+        for mode in ("warm",) if name == "warmup_launches" else ("warm",
+                                                                 "cold"):
+            got_l = child[mode][name]
+            if on_card and (got_l["gpg_counts"] != 3 * want_n
+                            or got_l["pointnet_trunk"] != 2 * want_n):
+                problems.append(f"10c {mode} {name}: {got_l}")
+    if not (w["plain_equal"] and c["plain_equal"]):
+        problems.append("10c: a live frame differs from its plain route")
+    launches["10c warmup"] = w["warmup_launches"]
+
+    # d. run_ros_node on the tabletop through stand-in ROS modules. The
+    # golden checkpoint calls no tabletop candidate good (class 2), and the
+    # node publishes only ranked good grasps: its best class's bias is
+    # raised by 3 so that every frame has some
+    ros_model = copy.deepcopy(scorer.model)
+    with torch.no_grad():
+        ros_model.fc3.bias[2] += 3.0
+    det = node.GraspDetector(GraspScorer(model=ros_model, k=3, device=dev),
+                             config=node.DetectorConfig(cloud_pad_to=pad))
+    pts, cam = tabletop_scene() if scene is None else scene
+    holder = [None]
+    published, names = fake_ros(holder)
+    try:
+        holder[0] = xyz_array_to_pointcloud2(pts, frame_id="/table_top")
+        n_frames = 3
+        for pipeline in (False, True):
+            published.clear()
+            zero_counts()
+            t0 = time.perf_counter()
+            node.run_ros_node(det, cam, max_frames=n_frames,
+                              pipeline=pipeline)
+            sync()
+            ros_s = time.perf_counter() - t0
+            name = f"10d run_ros_node pipeline={pipeline}"
+            expect(name, {"gpg_counts": 3 * n_frames,
+                          "pointnet_trunk": 2 * n_frames})
+            glist = published.get("/detect_grasps/clustered_grasps", [])
+            match = []
+            for seed, msg in enumerate(glist):
+                want = det.process_frame(pts, cam, seed=seed)
+                g0 = msg.grasps[0]
+                match.append(bool(
+                    np.array_equal([g0.bottom.x, g0.bottom.y, g0.bottom.z],
+                                   want["grasps"][0, 4])
+                    and np.array_equal([g0.approach.x, g0.approach.y,
+                                        g0.approach.z], want["grasps"][0, 1])
+                    and g0.score.data == float(want["scores"][0])))
+            with plain_kernels():
+                plain = det.process_frame(pts, cam, seed=0)
+            near = (len(glist) > 0 and len(plain["scores"]) > 0 and abs(
+                glist[0].grasps[0].score.data - float(plain["scores"][0]))
+                <= 1e-4)
+            print(f"{name}: {n_frames} frames in {ros_s:.3f} s "
+                  f"({ros_s / n_frames * 1e3:.2f} ms per frame, host clock), "
+                  f"{len(glist)} grasp lists published, launches "
+                  f"{launches[name]}; best grasp equal to process_frame's "
+                  f"first ranked grasp: {match}; best score vs the plain "
+                  f"route within 1e-4: {near} ({card})", flush=True)
+            if len(glist) != n_frames or not all(match) or not near:
+                problems.append(f"{name}: published grasps differ")
+    finally:
+        for name in names:
+            sys.modules.pop(name, None)
+    if problems:
+        fail("phase 10: " + "; ".join(problems))
+    print(flush=True)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# Phase 11: the RGB-D -> cloud path
+
+
+def synthetic_rgbd(h=480, w=640, rgb_hw=(1024, 1280)):
+    """A YCB-like frame: a table plane sloping from 0.9 to 1.3 m with a box
+    0.25 m nearer on it (real depth discontinuities), 1e-4 m depth units, a
+    non-identity IR -> RGB transform into a larger colour frame, a mask and
+    a rotated table pose. Returns ``frame_cloud``'s keyword arguments."""
+    rs = np.random.RandomState(0)
+    rows = np.linspace(9000, 13000, h)[:, None] * np.ones((1, w))
+    depth = rows.astype(np.uint16)
+    depth[h // 3:2 * h // 3, w // 3:w // 2] -= 2500
+    depth[rs.rand(h, w) < 0.002] = 0                      # dropouts
+
+    def rot(a):
+        c, s = np.cos(a), np.sin(a)
+        return (np.array([[1, 0, 0], [0, c[0], -s[0]], [0, s[0], c[0]]])
+                @ np.array([[c[1], 0, s[1]], [0, 1, 0], [-s[1], 0, c[1]]])
+                @ np.array([[c[2], -s[2], 0], [s[2], c[2], 0], [0, 0, 1]]))
+
+    rgb_from_ref, ir_from_ref, obj_from_ref = np.eye(4), np.eye(4), np.eye(4)
+    rgb_from_ref[:3, :3] = rot([0.3, -0.2, 0.1])
+    rgb_from_ref[:3, 3] = [0.1, -0.05, 0.02]
+    ir_from_ref[:3, :3] = rot([0.3, -0.19, 0.105])
+    ir_from_ref[:3, 3] = [0.075, -0.05, 0.021]
+    obj_from_ref[:3, :3] = rot([2.2, 0.1, -0.4])
+    obj_from_ref[:3, 3] = [0.05, 0.4, 0.8]
+    mask = np.zeros(rgb_hw, np.uint8)
+    mask[:, : rgb_hw[1] // 5] = 255
+    return dict(
+        depth=depth, depth_k=np.array([[571.0, 0, 319.5], [0, 571.0, 239.5],
+                                       [0, 0, 1]]),
+        rgb_k=np.array([[1050.0, 0, 639.5], [0, 1050.0, 511.5], [0, 0, 1]]),
+        depth_scale=np.array(1.0) * 1e-4,
+        h_rgb_from_depth=rgb_from_ref @ np.linalg.inv(ir_from_ref),
+        ref_from_rgb=np.linalg.inv(rgb_from_ref), obj_from_ref=obj_from_ref,
+        rgb_image=rs.randint(0, 255, rgb_hw + (3,)).astype(np.uint8),
+        mask=mask)
+
+
+def cloud_phases(torch, card, dev="cuda", frame=None, torus=TORUS,
+                 n_views=6, iters=20):
+    """Phase 11: the RGB-D -> cloud path on ``dev`` against the CPU route
+    (see the module docstring). ``frame``: ``synthetic_rgbd``'s keyword
+    arguments (default: the full-size frame)."""
+    import tempfile
+
+    from pointnetgpd_tpu_torch.geometry.io import write_obj
+    from pointnetgpd_tpu_torch.pipelines import render_clouds as rc
+    from pointnetgpd_tpu_torch.pipelines import ycb_clouds as yc
+    from pointnetgpd_tpu_torch.render import native
+
+    dev = torch.device(dev)
+    frame = synthetic_rgbd() if frame is None else frame
+    problems = []
+    renderer_dir = os.path.join(HERE, "native", "renderer")
+
+    def listing():
+        return sorted((n, os.stat(os.path.join(renderer_dir, n)).st_mtime_ns)
+                      for n in os.listdir(renderer_dir))
+
+    before = listing()
+
+    # a. the three per-pixel functions and the whole array-level frame
+    def stages(where):
+        t = {k: torch.as_tensor(np.asarray(v, np.float64).astype(np.float32),
+                                device=where)
+             for k, v in frame.items() if k in ("depth_k", "rgb_k",
+                                                "h_rgb_from_depth",
+                                                "ref_from_rgb",
+                                                "obj_from_ref")}
+        raw = torch.as_tensor(frame["depth"].astype(np.float32), device=where)
+        rgb = torch.as_tensor(frame["rgb_image"], device=where)
+        hw = frame["rgb_image"].shape[:2]
+        filt = yc.filter_discontinuities(raw)
+        depth = (filt.double() * float(frame["depth_scale"])).float()
+        reg = yc.register_depth_map(depth, t["depth_k"], t["rgb_k"],
+                                    t["h_rgb_from_depth"], out_height=hw[0],
+                                    out_width=hw[1])
+        cloud, valid = yc.depth_map_to_cloud(reg, rgb, t["rgb_k"],
+                                             t["ref_from_rgb"],
+                                             t["obj_from_ref"])
+        fns = {"filter_discontinuities": lambda: yc.filter_discontinuities(
+                   raw),
+               "register_depth_map": lambda: yc.register_depth_map(
+                   depth, t["depth_k"], t["rgb_k"], t["h_rgb_from_depth"],
+                   out_height=hw[0], out_width=hw[1]),
+               "depth_map_to_cloud": lambda: yc.depth_map_to_cloud(
+                   reg, rgb, t["rgb_k"], t["ref_from_rgb"],
+                   t["obj_from_ref"])}
+        return filt, reg, cloud, valid, fns
+
+    f_d, r_d, c_d, v_d, fns = stages(dev)
+    f_c, r_c, c_c, v_c, _ = stages("cpu")
+    filt_eq = torch.equal(f_d.cpu(), f_c)
+    reg_eq = torch.equal(r_d.cpu(), r_c)
+    c_d, c_c = c_d.cpu().numpy(), c_c.numpy()
+    cloud_ok = bool(torch.equal(v_d.cpu(), v_c)) and bool(np.all(
+        np.abs(c_d - c_c) <= 1e-6 * (1 + np.abs(c_c))))
+    times = {k: cuda_ms(torch, fn, iters=iters) for k, fn in fns.items()}
+    times["frame_cloud"] = cuda_ms(
+        torch, lambda: yc.frame_cloud(**frame, device=dev), iters=iters)
+    cloud = yc.frame_cloud(**frame, device=dev)
+    cloud_cpu = yc.frame_cloud(**frame, device="cpu")
+    n_reg = int((r_c > 0).sum())
+    print(f"11a ycb_clouds on a {frame['depth'].shape[1]}x"
+          f"{frame['depth'].shape[0]} depth frame -> "
+          f"{frame['rgb_image'].shape[1]}x{frame['rgb_image'].shape[0]} "
+          f"colour frame: {int((f_c == 0).sum())} zero pixels after the "
+          f"filter, {n_reg} registered pixels, cloud {len(cloud)} points; "
+          f"card vs CPU: filtered equal {filt_eq}, registered equal "
+          f"{reg_eq}, cloud within 1e-6 (1 + |ref|) {cloud_ok}, frame_cloud "
+          f"equal {np.array_equal(cloud, cloud_cpu)}", flush=True)
+    print("11a timings (CUDA events, warm, " + str(iters) + " calls): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+          + f" (frame_cloud: host arrays in, host cloud out) ({card})",
+          flush=True)
+    if not (filt_eq and reg_eq and cloud_ok and n_reg > 0 and len(cloud)):
+        problems.append("11a: the card route differs from the CPU route")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # b. the writers
+        stem = os.path.join(tmp, "pc_NP1_NP5_0")
+        yc.write_ply(stem + ".ply", cloud)
+        yc.write_pcd(stem + ".pcd", cloud[:, :3])
+        np.save(stem + ".npy", cloud[:, :3])
+        raw = open(stem + ".pcd", "rb").read()
+        pcd = np.frombuffer(raw.split(b"DATA binary\n", 1)[1], np.float32)
+        ply = open(stem + ".ply").read().splitlines()
+        n_ply = int(ply[2].split()[-1])
+        ok_b = (np.array_equal(np.load(stem + ".npy"), pcd.reshape(-1, 3))
+                and n_ply == len(cloud) == len(ply) - 10)
+        print(f"11b writers: .npy equal to the .pcd's xyz and .ply vertex "
+              f"count {n_ply} = {len(cloud)}: {ok_b}", flush=True)
+        if not ok_b:
+            problems.append("11b: the written files disagree")
+
+        # c. render_object_clouds on the torus, card against the CPU; the
+        # rasterizer's g++ build is timed apart
+        t0 = time.perf_counter()
+        native.render_mesh(np.eye(3, 4), np.zeros(3), 2, 2, np.zeros((3, 3)),
+                           np.zeros((1, 3), np.int32))
+        build_s = time.perf_counter() - t0
+        v, f = torus_mesh(*torus)
+        paths = {}
+        secs = {}
+        for where, sub in ((dev.type, "route"), ("cpu", "cpu_route")):
+            obj = os.path.join(tmp, sub, "torus")
+            os.makedirs(os.path.join(obj, "google_512k"))
+            write_obj(os.path.join(obj, "google_512k", "nontextured.obj"),
+                      v, f)
+            t0 = time.perf_counter()
+            paths[where] = rc.render_object_clouds(obj, n_views=n_views,
+                                                   device=where)
+            secs[where] = time.perf_counter() - t0
+        same = [open(a, "rb").read() == open(b, "rb").read()
+                for a, b in zip(paths[dev.type], paths["cpu"])]
+        pts = np.concatenate([np.load(p) for p in paths[dev.type]])
+        dist = np.abs(torus_sdf(pts.astype(np.float64), *torus[2:]))
+        # one pixel's footprint at the point's range from its camera
+        rng_ = np.concatenate([np.linalg.norm(
+            np.load(p) - c, axis=1) for p, (_, c) in zip(
+                paths[dev.type], rc.view_ring(n_views=n_views))])
+        bound = 4 * 3e-4 + rng_ / rc.DEFAULT_INTR.fx
+        lib = native.library_path()
+        built = lib.exists() and os.path.samefile(
+            lib.parent, os.path.join(HERE, "pointnetgpd_tpu_torch", "_build"))
+        print(f"11c render_object_clouds on the {len(f)}-triangle torus, "
+              f"{n_views} views: {len(pts)} points, files equal card vs "
+              f"CPU {same}, max |torus distance| {dist.max():.3e} m, "
+              f"largest share of its bound {np.max(dist / bound):.3f}; "
+              f"{secs[dev.type]:.3f} s per object ({dev.type}), "
+              f"{secs['cpu']:.3f} s (cpu); binding {lib.name} under "
+              f"_build/: {built}, its first load (g++ build where it was "
+              f"not built) {build_s:.3f} s ({card})", flush=True)
+        if (len(same) != n_views or not all(same) or not np.all(dist < bound)
+                or not built):
+            problems.append("11c: rendered clouds wrong or differ")
+    if listing() != before:
+        problems.append("11: native/renderer/ changed during the run")
+    if problems:
+        fail("phase 11: " + "; ".join(problems))
+    print(flush=True)
+    return {"frame_ms": times["frame_cloud"], **times}
+
+
 def main():
     import torch
 
@@ -2225,14 +2871,36 @@ def main():
     k3_entry = voxelizer_phases(torch, card)
     k3_above_cap(torch, card)
 
-    # 8. the training path
-    train = training_phases(torch, card, "--profile" in sys.argv)
-    # 9. the labeling path
-    label = labeling_phases(torch, card)
+    import shutil
+    import tempfile
+
+    keep = tempfile.mkdtemp()
+    try:
+        # 8. the training path
+        train = training_phases(torch, card, "--profile" in sys.argv,
+                                keep_dir=keep)
+        # 9. the labeling path
+        label = labeling_phases(torch, card)
+        # 10. the online path's entry points
+        entry = entry_phases(torch, card, ckpt_dir=train["model_path"],
+                             trained=train["model"], frame_ms=frame_ms)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
+    # 11. the RGB-D -> cloud path
+    clouds = cloud_phases(torch, card)
+    ros = entry["10d run_ros_node pipeline=False"]
     print(f"kernel launches by path: frame {launches['gpg_counts']} K1 and "
           f"{launches['pointnet_trunk']} K2 (3 frames), training eval "
           f"{train['eval_launches']} K2 (4 eval batches), labeling "
-          f"{label['k1_launches']} K1 (3 SDF GPG sampler calls)", flush=True)
+          f"{label['k1_launches']} K1 (3 SDF GPG sampler calls), cli.infer "
+          f"{entry['10a cli.infer']['pointnet_trunk']} K2, dual scorer "
+          f"{entry['10b dual']['pointnet_trunk']} K2, bf16 scorer "
+          f"{entry['10b bf16']['pointnet_trunk']} K2, warmup "
+          f"{entry['10c warmup']['gpg_counts']} K1 and "
+          f"{entry['10c warmup']['pointnet_trunk']} K2 (its buckets), ROS "
+          f"node {ros['gpg_counts']} K1 and {ros['pointnet_trunk']} K2 "
+          f"(3 frames); the cloud path none (11a frame "
+          f"{clouds['frame_ms']:.3f} ms)", flush=True)
     print(f"labeling summary ({card}): {label['gps3']:.1f} labeled grasps/s "
           f"(3-D), {label['gps6']:.1f} (6-D); one torus object "
           f"{label['9b']['cold_s']:.2f} s cold, {label['9b']['warm_s']:.2f} s "
@@ -2247,7 +2915,9 @@ def main():
          "replaces": "pointnetgpd_tpu/ops/gpg_counts_pallas.py:156",
          "launches": launches["gpg_counts"],
          "launches_by_path": {"frame": launches["gpg_counts"],
-                              "labeling": label["k1_launches"]},
+                              "labeling": label["k1_launches"],
+                              "warmup": entry["10c warmup"]["gpg_counts"],
+                              "ros_node": ros["gpg_counts"]},
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
@@ -2255,6 +2925,14 @@ def main():
          "source": "pointnetgpd_tpu_torch/csrc/pointnet_trunk.cu",
          "replaces": "pointnetgpd_tpu/ops/pointnet_trunk_pallas.py:106",
          "launches": launches["pointnet_trunk"],
+         "launches_by_path": {
+             "frame": launches["pointnet_trunk"],
+             "training_eval": train["eval_launches"],
+             "cli_infer": entry["10a cli.infer"]["pointnet_trunk"],
+             "dual_scorer": entry["10b dual"]["pointnet_trunk"],
+             "bf16_scorer": entry["10b bf16"]["pointnet_trunk"],
+             "warmup": entry["10c warmup"]["pointnet_trunk"],
+             "ros_node": ros["pointnet_trunk"]},
          "max_abs_err": k2_err["64x500"], "ms": timing["k2_64x500"],
          "plain_ms": timing["k2_plain_64x500"], "bound_ms": k2_bound,
          "bound_by": "operations",
@@ -2268,4 +2946,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--warmup-child"]:
+        warmup_child(sys.argv[2], sys.argv[3], int(sys.argv[4]),
+                     int(sys.argv[5]))
+    else:
+        main()

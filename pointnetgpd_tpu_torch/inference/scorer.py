@@ -4,8 +4,11 @@ Port of ``pointnetgpd_tpu/inference/scorer.py``. The deployed reference
 applies softmax on top of the model's log_softmax output (main_test.py:65-66);
 that quirk is kept, as is the vote's tie break toward the smallest class
 (``scipy.stats.mode``, main_test.py:93). Random numbers come from a
-``draws.Draws``-like object. ``mesh`` sharding and ``as_dtype`` come in a
-later slice.
+``draws.Draws``-like object. The model is a ``PointNetCls`` or, for dual
+checkpoints (the JAX scorer's ``dual=True``), a ``DualPointNetCls`` that
+scores (G, P, 6) clouds through ``score_clouds``. ``as_dtype`` casts the
+model (bf16: every trunk still runs K2 in float32, see
+``models/pointnet.py``). ``mesh`` sharding comes in a later slice.
 """
 
 from __future__ import annotations
@@ -13,12 +16,14 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
+import copy
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..draws import Draws
-from ..models.convert import (load_reference_checkpoint,
+from ..models.convert import (is_dual_state_dict, load_reference_checkpoint,
                               pointnet_cls_from_state_dict)
 from ..ops.crop import collect_candidate_clouds
 
@@ -29,6 +34,8 @@ def _round_up(n: int, m: int) -> int:
 
 def _to_host(tree):
     if isinstance(tree, torch.Tensor):
+        if tree.dtype == torch.bfloat16:     # numpy has no bfloat16
+            tree = tree.float()
         return tree.detach().cpu().numpy()
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
@@ -60,6 +67,9 @@ def score_cloud_batch(model, clouds, valid, draws, *, num_points: int = 500,
     rep = clouds.repeat_interleave(repeat, dim=0)
     batch = rep[torch.arange(g * repeat, device=clouds.device)[:, None],
                 idx.long()]
+    # the model's precision from here on (bf16 after as_dtype); the
+    # geometry stays float32
+    batch = batch.to(model.fc3.weight.dtype)
     logp, _ = model(batch.contiguous())
     probs = F.softmax(logp, dim=-1)          # reference quirk (main_test:66)
     k_cls = probs.shape[-1]
@@ -122,14 +132,61 @@ class GraspScorer:
         self._best_class = self.k - 1
 
     @classmethod
-    def from_checkpoint(cls, path, ref_paths=(), device="cuda", **kw):
-        """Reference checkpoint (pickled module, state_dict or .npz)."""
+    def from_checkpoint(cls, path, ref_paths=(), device="cuda", dual=None,
+                        **kw):
+        """Reference checkpoint (pickled module, state_dict, .npz or a
+        training checkpoint directory of the port). The model is a
+        DualPointNetCls where the state dict is a dual one; ``dual`` (True
+        or False), where given, must agree with it."""
         sd = load_reference_checkpoint(path, ref_paths)
+        if dual is not None and bool(dual) != is_dual_state_dict(sd):
+            raise ValueError(f"dual={dual} was requested but the checkpoint "
+                             f"is {'' if not dual else 'not '}a dual model's")
         model = pointnet_cls_from_state_dict(sd, device=device)
         if kw.setdefault("k", model.k) != model.k:
             raise ValueError(f"checkpoint is {model.k}-class but "
                              f"k={kw['k']} was requested")
         return cls(model=model, device=device, **kw)
+
+    def as_dtype(self, dtype) -> "GraspScorer":
+        """A copy whose model is cast to ``dtype`` (``torch.bfloat16``
+        halves the parameters and activations; its trunks still run K2 in
+        float32). Exact checkpoint parity needs float32."""
+        return GraspScorer(model=copy.deepcopy(self.model).to(dtype),
+                           k=self.k, num_points=self.num_points,
+                           repeat=self.repeat, pad_to=self.pad_to,
+                           min_points=self.min_points,
+                           crop_recenter=self.crop_recenter,
+                           device=self.device)
+
+    def score_clouds(self, clouds, valid=None, seed: int = 0, draws=None):
+        """(G, P, C) cropped candidate clouds in the gripper frame (C = 3,
+        or 6 for a dual model) -> (pred (G,), prob (G, k), votes
+        (G, repeat)) as numpy arrays. The candidate axis is padded to
+        ``pad_to`` as the JAX package pads it; the result comes to the host
+        in one copy. ``draws`` replaces the resample draws (default
+        ``Draws(seed)``)."""
+        dev = self.device
+        clouds = torch.as_tensor(np.asarray(clouds, np.float32) if not
+                                 isinstance(clouds, torch.Tensor) else clouds)
+        g = clouds.shape[0]
+        g_pad = max(_round_up(g, self.pad_to), self.pad_to)
+        clouds_p = torch.zeros((g_pad,) + tuple(clouds.shape[1:]),
+                               dtype=torch.float32, device=dev)
+        clouds_p[:g] = clouds.to(dev, torch.float32)
+        valid_p = torch.zeros((g_pad,), dtype=torch.bool, device=dev)
+        valid_p[:g] = True if valid is None else torch.as_tensor(
+            np.asarray(valid, bool) if not isinstance(valid, torch.Tensor)
+            else valid).to(dev)
+        pred, prob, votes = score_cloud_batch(
+            self.model, clouds_p, valid_p, draws or Draws(seed, dev),
+            num_points=self.num_points, repeat=self.repeat)
+        # one device -> host copy: every output is exact in float64
+        k = prob.shape[1]
+        host = torch.cat([pred[:g, None].double(), prob[:g].double(),
+                          votes[:g].double()], dim=1).cpu().numpy()
+        return (host[:, 0].astype(np.int64), host[:, 1:1 + k].astype(
+            np.float32), host[:, 1 + k:].astype(np.int64))
 
     def score_candidates(self, pc, candidates, hand_depth, width,
                          seed: int = 0, valid=None, extra_fetch=None,

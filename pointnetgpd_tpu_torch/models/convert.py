@@ -12,7 +12,9 @@
   whole module (``torch.save(model)``, reference PointNetGPD/main_1v.py:178),
   a plain state_dict, an ``.npz`` of one, or a training checkpoint
   directory of the port (``training/checkpoint.py``) — as a state_dict.
-- ``pointnet_cls_from_state_dict``: build a ``PointNetCls`` sized from it.
+- ``pointnet_cls_from_state_dict``: build a ``PointNetCls`` sized from it,
+  or a ``DualPointNetCls`` for a dual state dict (two SimpleSTN3d,
+  ``feat.stn1``/``feat.stn2``), the JAX package's ``dual=True`` model.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import sys
 import numpy as np
 import torch
 
-from .pointnet import PointNetCls
+from .pointnet import DualPointNetCls, PointNetCls
 
 MODEL_FILE = "model.pt"    # the state_dict inside a training checkpoint
 
@@ -99,12 +101,19 @@ def load_reference_checkpoint(path, ref_paths=()) -> dict:
     raise TypeError(f"unsupported checkpoint object: {type(obj)}")
 
 
+def is_dual_state_dict(sd: dict) -> bool:
+    """Whether ``sd`` is a DualPointNetCls's (two SimpleSTN3d)."""
+    return "feat.stn1.conv1.weight" in sd
+
+
 def pointnet_cls_from_state_dict(sd: dict, num_points: int = 500,
-                                 device="cuda") -> PointNetCls:
-    """A ``PointNetCls`` with the class count and input channels read off
-    ``sd``, loaded strictly and moved to ``device``."""
+                                 device="cuda"):
+    """A ``PointNetCls`` (or, for a dual state dict, a ``DualPointNetCls``)
+    with the class count and input channels read off ``sd``, loaded
+    strictly and moved to ``device``."""
     k = int(sd["fc3.weight"].shape[0])
     c = int(sd["feat.conv1.weight"].shape[1])
-    model = PointNetCls(num_points=num_points, input_chann=c, k=k)
+    cls = DualPointNetCls if is_dual_state_dict(sd) else PointNetCls
+    model = cls(num_points=num_points, input_chann=c, k=k)
     model.load_state_dict({key: torch.as_tensor(v) for key, v in sd.items()})
     return model.to(device)

@@ -22,6 +22,12 @@ the kernel's 3xTF32 split of the weights (``FoldedTrunk.tensor_core``). A
 trunk of another shape (SimpleSTN3d's, 128 -> 256) runs plain torch in eval
 mode, as in JAX. K2 has no backward: an eval forward that autograd would
 differentiate raises (``fused_trunk``).
+
+A model cast to bfloat16 (``GraspScorer.as_dtype``) still runs its trunks
+through K2, which computes in float32: the fold is taken in float32 from the
+bf16 parameters, the trunk's input is handed to K2 as float32 and the
+(B, 1024) result cast back to bf16 (``_Trunk.k2_max``). The rest of the
+model computes in bf16, as the JAX package's bf16 scorer does.
 """
 
 from __future__ import annotations
@@ -73,11 +79,19 @@ class _Trunk(nn.Module):
                 and self.conv3.in_channels == 128
                 and self.conv3.out_channels == 1024)
 
+    def k2_max(self, x):
+        """The eval-mode trunk through K2: x (B, N, C) -> (B, 1024) in x's
+        dtype. K2 computes in float32, so a bf16 ``x`` goes in as float32
+        (exact) and the result comes back rounded to bf16."""
+        if x.dtype == torch.float32:
+            return fused_trunk(x, self.folded_trunk())
+        return fused_trunk(x.float(), self.folded_trunk()).to(x.dtype)
+
     def trunk_max(self, x, *, fused_maxpool: bool = False):
         """max over points of bn3(conv3(relu(bn2(conv2(relu(bn1(conv1 x)))))))
         (no ReLU after layer 3): (B, N, C) -> (B, C3)."""
         if not self.training and self._on_k2():
-            return fused_trunk(x, self.folded_trunk())
+            return self.k2_max(x)
         h = linear_bn_relu(self.conv1, self.bn1, x, train=self.training)
         h = linear_bn_relu(self.conv2, self.bn2, h, train=self.training)
         return linear_bn_max(self.conv3, self.bn3, h, train=self.training,
@@ -145,7 +159,7 @@ class PointNetfeat(_Trunk):
         pointfeat = linear_bn_relu(self.conv1, self.bn1, x,
                                    train=self.training)
         if not self.training and self._on_k2():
-            g = fused_trunk(x, self.folded_trunk())
+            g = self.k2_max(x)
         else:
             h = linear_bn_relu(self.conv2, self.bn2, pointfeat,
                                train=self.training)

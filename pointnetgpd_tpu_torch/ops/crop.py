@@ -147,6 +147,42 @@ def _normalize(v):
     return v / torch.sqrt(sumsq3(v))[..., None]
 
 
+# peak bytes of the recenter pre-pass's (chunk, P) temporaries
+RECENTER_BYTES = 64 << 20
+# (chunk, P) float32 / bool temporaries of one pre-pass chunk: rel (3),
+# loc (3), the dot products' float64 intermediates (4 x 2), the masks
+_RECENTER_BYTES_PER_PAIR = 4 * (3 + 3 + 8) + 4
+
+
+def _recenter_depth(pc, bottom_centers, rot_rows, hd, w):
+    """The ``recenter`` pre-pass: each candidate's grasp-center depth, the
+    mean x of its points inside the reference box, (G,). Streamed over
+    chunks of candidates so that its temporaries stay within
+    ``RECENTER_BYTES`` (the dense (G, P, 3) form grows with both); each
+    candidate's row is reduced whole, so the chunking changes no bit. The
+    last chunk is padded to the chunk's size, so every chunk reduces the
+    same shape."""
+    g, p = bottom_centers.shape[0], pc.shape[0]
+    if g == 0:
+        return torch.zeros((0,), dtype=pc.dtype, device=pc.device)
+    chunk = max(1, min(g, RECENTER_BYTES // (_RECENTER_BYTES_PER_PAIR * p)))
+    out = []
+    for c0 in range(0, g, chunk):
+        sl = torch.arange(c0, c0 + chunk, device=pc.device).clamp(max=g - 1)
+        bc, rr = bottom_centers[sl], rot_rows[sl]
+        rel = pc[None, :, :] - bc[:, None, :]                  # (chunk, P, 3)
+        loc = [dot3(rel[..., 0], rr[:, i, 0, None], rel[..., 1],
+                    rr[:, i, 1, None], rel[..., 2], rr[:, i, 2, None])
+               for i in range(3)]
+        del rel
+        inref = ((loc[0] > 0) & (loc[0] < hd) & (torch.abs(loc[1]) < w / 2.0)
+                 & (torch.abs(loc[2]) < w / 4.0))
+        n_in = torch.clamp(inref.sum(dim=1), min=1)
+        xbar = torch.where(inref, loc[0], 0.0).sum(dim=1) / n_in
+        out.append(xbar[:min(chunk, g - c0)])
+    return torch.cat(out)
+
+
 def collect_candidate_clouds(bottom_centers, approaches, binormals,
                              minor_normals, pc, hand_depth, width, draws, *,
                              num_out: int = 500, min_point_limit: int = 10,
@@ -168,14 +204,7 @@ def collect_candidate_clouds(bottom_centers, approaches, binormals,
     rot_rows = torch.stack([_normalize(approaches), _normalize(binormals),
                             _normalize(minor_normals)], dim=1)   # (G, 3, 3)
     if recenter:
-        rel = pc[None, :, :] - bottom_centers[:, None, :]         # (G, P, 3)
-        loc = [dot3(rel[..., 0], rot_rows[:, i, 0, None], rel[..., 1],
-                    rot_rows[:, i, 1, None], rel[..., 2],
-                    rot_rows[:, i, 2, None]) for i in range(3)]
-        inref = ((loc[0] > 0) & (loc[0] < hd) & (torch.abs(loc[1]) < w / 2.0)
-                 & (torch.abs(loc[2]) < w / 4.0))
-        n_in = torch.clamp(inref.sum(dim=1), min=1)
-        xbar = torch.where(inref, loc[0], 0.0).sum(dim=1) / n_in
+        xbar = _recenter_depth(pc, bottom_centers, rot_rows, hd, w)
         centers = fma(approaches, xbar[:, None], bottom_centers)
         box_hi = torch.stack([w / 4.0, w / 2.0, w / 4.0]).expand(g, 3)
         box_lo = -box_hi

@@ -112,12 +112,15 @@ class FoldedTrunk(tuple):
 def fold_trunk_params(module):
     """A module with ``conv1..3`` (1x1 Conv1d) and ``bn1..3`` (STN3d or
     PointNetfeat) -> folded (w1, b1, w2, b2, w3, b3), weights transposed to
-    (in, out), as a ``FoldedTrunk``."""
+    (in, out), as a ``FoldedTrunk``. The fold is computed in float32 from
+    the module's parameters whatever their dtype (a bf16 model's too): K2
+    computes in float32."""
     out, grad = [], False
     for i in (1, 2, 3):
         conv, bn = getattr(module, f"conv{i}"), getattr(module, f"bn{i}")
-        w, b = fold_bn(conv.weight[:, :, 0], conv.bias, bn.weight, bn.bias,
-                       bn.running_mean, bn.running_var, bn.eps)
+        w, b = fold_bn(*(t.float() for t in (
+            conv.weight[:, :, 0], conv.bias, bn.weight, bn.bias,
+            bn.running_mean, bn.running_var)), bn.eps)
         out += [w.t().contiguous(), b.contiguous()]
         grad = grad or any(t.requires_grad for t in (conv.weight, conv.bias,
                                                      bn.weight, bn.bias))

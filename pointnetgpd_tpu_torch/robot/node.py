@@ -11,8 +11,14 @@ config's ``sampler_exact`` switch has no counterpart. The stages carry
 ``torch.profiler.record_function`` labels (``frame.upload_voxel``,
 ``frame.normals``, ``frame.gpg``, ``frame.score``, ``frame.collect``),
 which cost nothing
-while no profiler runs. ``run_ros_node`` and ``warmup`` come in a later
-slice.
+while no profiler runs.
+
+``GraspDetector.warmup`` runs one synthetic frame per size bucket before a
+node goes live: on the card nothing is compiled per shape, but the first
+pass at each bucket pays the kernel library's build, the cuBLAS and cuDNN
+handles and the caching allocator's first allocations. ``run_ros_node``
+wires the detector to the reference's topics; ROS is imported only inside
+it.
 """
 
 from __future__ import annotations
@@ -35,6 +41,17 @@ def remove_table_points(points: np.ndarray, z_thresh: float = 0.005,
                         table_z: float = 0.0) -> np.ndarray:
     """Drop points within z_thresh of the table plane z = table_z."""
     return points[points[:, 2] > table_z + z_thresh]
+
+
+def remove_grasp_outside_tray(frames: np.ndarray, tray_x=(-0.2, 0.2),
+                              tray_y=(-0.2, 0.2)) -> np.ndarray:
+    """Keep the grasps whose bottom centers lie inside the tray rectangle
+    (kinect2grasp.py:370-388)."""
+    frames = np.asarray(frames)
+    bc = frames[:, 0]
+    ok = ((bc[:, 0] > tray_x[0]) & (bc[:, 0] < tray_x[1])
+          & (bc[:, 1] > tray_y[0]) & (bc[:, 1] < tray_y[1]))
+    return frames[ok]
 
 
 @dataclass
@@ -95,6 +112,25 @@ class GraspDetector:
         self.scorer.min_points = self.cfg.minimal_points_send_to_point_net
         self.scorer.crop_recenter = self.cfg.crop_mode == "dataset"
         self._last_voxel_count: int | None = None   # adaptive_bucket state
+
+    def warmup(self, max_points: int, cam_pos=(1.0, 1.0, 1.0)):
+        """Run one synthetic frame at every cloud size bucket up to
+        ``max_points`` raw points, so that no live frame pays a bucket's
+        first pass; returns the bucket sizes. The blob's points spread over
+        0.4 m survive the voxel downsample about one to one, so a
+        (b - cloud_pad_to / 2)-point cloud lands in bucket b; the bucket is
+        pinned to b even where an adaptive bucket would shrink it."""
+        rng = np.random.RandomState(0)
+        pad = self.cfg.cloud_pad_to
+        buckets = list(range(pad, max_points + pad, pad))
+        for b in buckets:
+            pts = (rng.rand(b - pad // 2, 3) * 0.4 - 0.2).astype(np.float32)
+            pts[:, 2] = np.abs(pts[:, 2]) + 0.02
+            self.collect_frame(self.dispatch_frame(
+                pts, np.asarray(cam_pos, np.float32), _force_bound=True))
+        # the blob's voxel count is no prior for a live frame
+        self._last_voxel_count = None
+        return buckets
 
     def process_frame(self, points: np.ndarray, cam_pos: np.ndarray,
                       seed: int = 0, funnel: bool = False, draws=None):
@@ -246,3 +282,79 @@ class GraspDetector:
             pending = nxt
         if pending is not None:
             yield self.collect_frame(pending)
+
+
+def run_ros_node(detector: GraspDetector, cam_pos, *,
+                 cloud_topic: str = "/table_top_points",
+                 marker_topic: str = "gripper_vis",
+                 grasp_topic: str = "/detect_grasps/clustered_grasps",
+                 rate_hz: float = 10.0, publish_all: bool = False,
+                 max_frames: int | None = None, pipeline: bool = False):
+    """The reference node's loop (kinect2grasp.py:400-424 setup, :412-418
+    ``/robot_at_home`` gating, :516-553 output): markers for every ranked
+    good grasp, then the best grasp as a one-element GraspConfigList
+    (``publish_all=True`` publishes the whole ranked list). Needs rospy,
+    sensor_msgs, visualization_msgs and gpd_grasp_msgs. ``max_frames``
+    bounds the frames taken (None: until shutdown).
+
+    ``pipeline=True`` keeps one frame in flight (frame N+1 is dispatched
+    before frame N is collected and published); a frame in flight when the
+    robot leaves home is collected and dropped, since the scene it saw is
+    gone."""
+    import rospy
+    from gpd_grasp_msgs.msg import GraspConfigList
+    from sensor_msgs.msg import PointCloud2
+    from visualization_msgs.msg import MarkerArray
+
+    from .pointclouds import pointcloud2_to_xyz_array
+    from .ros_messages import grasp_config_list_msg, gripper_marker_array
+
+    rospy.init_node("grasp_tf_broadcaster", anonymous=True)
+    pub_markers = rospy.Publisher(marker_topic, MarkerArray, queue_size=1)
+    pub_grasps = rospy.Publisher(grasp_topic, GraspConfigList, queue_size=1)
+    rate = rospy.Rate(rate_hz)
+    # the simulation default of the reference (:404); robot_state.py's
+    # publisher overwrites it on a real robot
+    rospy.set_param("/robot_at_home", "true")
+
+    def publish(out):
+        if len(out["grasps"]) == 0:
+            rospy.loginfo("No good grasps this frame.")
+            return
+        pub_markers.publish(
+            gripper_marker_array(out["grasps"], detector.gripper))
+        n_pub = len(out["grasps"]) if publish_all else 1
+        pub_grasps.publish(grasp_config_list_msg(
+            out["grasps"][:n_pub], out["scores"][:n_pub]))
+        rospy.loginfo("Published %d of %d ranked grasps",
+                      n_pub, len(out["grasps"]))
+
+    seed = frames = 0
+    pending = None
+    while not rospy.is_shutdown():
+        if rospy.get_param("/robot_at_home") == "false":
+            if pending is not None:
+                detector.collect_frame(pending)   # stale: dropped
+                pending = None
+            rospy.loginfo("Robot is moving, waiting for it to go home.")
+            rate.sleep()
+            continue
+        msg = rospy.wait_for_message(cloud_topic, PointCloud2)
+        frames += 1
+        if msg.data:
+            points = pointcloud2_to_xyz_array(msg)
+            if pipeline:
+                nxt = detector.dispatch_frame(points, cam_pos, seed=seed)
+                if pending is not None:
+                    publish(detector.collect_frame(pending))
+                pending = nxt
+            else:
+                publish(detector.process_frame(points, cam_pos, seed=seed))
+            seed += 1
+        else:
+            rospy.loginfo("No points on the table, waiting...")
+        if max_frames is not None and frames >= max_frames:
+            break
+        rate.sleep()
+    if pending is not None:                       # drain the frame in flight
+        publish(detector.collect_frame(pending))

@@ -148,6 +148,22 @@ def test_collect_candidate_clouds_matches_jax(branch, g, reps, recenter):
     np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), atol=1e-5)
     counts = np.asarray(c_j)
     assert counts.max() > 128 and (counts[counts > 0] < 128).any()
+    if recenter:
+        # the recenter pre-pass streamed in chunks of 7 candidates (the
+        # last one padded): the same bits as one pass over all of them
+        chunk = 7 * tcrop._RECENTER_BYTES_PER_PAIR * len(pc)
+        old = tcrop.RECENTER_BYTES
+        tcrop.RECENTER_BYTES = chunk
+        try:
+            p_c, c_c, v_c = tcrop.collect_candidate_clouds(
+                *[_t(cand[:, i]) for i in range(4)], _t(pc), float(hd),
+                float(w), JaxDraws(k_crop=key), num_out=128,
+                min_point_limit=10, recenter=True)
+        finally:
+            tcrop.RECENTER_BYTES = old
+        assert g > 7 and g % 7
+        for a, b in ((p_c, p_t), (c_c, c_t), (v_c, v_t)):
+            assert torch.equal(a, b)
 
 
 def test_crop_empty_cloud():
