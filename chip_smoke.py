@@ -137,6 +137,43 @@ Phases, in order; any failure exits non-zero:
       noise plus a pixel's footprint of the analytic torus, the rasterizer
       built under ``pointnetgpd_tpu_torch/_build/``, ``native/renderer/``
       unchanged.
+12. data and tensor parallelism on the one card (``mesh_phases``): a mesh
+   of 2 shards on cuda:0 and ranks on cuda:0 show that the split, the
+   per-shard launches, the collectives and the gather give the
+   single-device answer (one-card numbers, not scaling):
+   a. ``process_frame`` on the tabletop with ``GraspScorer(mesh=make_mesh(
+      2, device="cuda:0"))`` against the single-device frame (the golden
+      model with its best-class bias raised by 3, so that the ranking has
+      grasps), with lazy and with whole-cloud window normals: n_valid, the
+      predictions and the ranked order equal, frames and scores within
+      1e-6; K1 3 and K2 2 launches per shard, each recorded K1 launch equal
+      to the plain version on its active frames; ms per frame of both;
+   b. ``score_clouds`` of 100 clouds (not a multiple of pad_to) on the mesh
+      against the single device: predictions equal, probabilities within
+      1e-6, K2 2 launches per shard;
+   c. the tensor-parallel eval forward (``parallel/tp.py``, mp = 2 on
+      cuda:0) of the golden model at (64, 500) against the replicated
+      forward to 2e-5: 4 launches, every one of K2's 512-row instance; that
+      instance against its plain version at (64, 500) and (128, 750) to
+      1e-4 x (1 + |ref|), its time and bound beside the 1024-row
+      instance's;
+   d. the 1v train step at full width (batch 128, 750 points, 20,000-point
+      clouds, a quarter of the batch masked, all on the second half) on 1
+      rank over NCCL and 2 ranks over gloo on cuda:0 (NCCL refuses two
+      ranks on one card), each against the 1-process step on the same
+      global batch and draws, in float32 and computed in float64
+      (``compute_dtype``), both cases in one start of the ranks: loss
+      within 1e-6 relative, BN running statistics within 1e-5 x
+      (1 + |ref|); the float64 step's every gradient within 1e-4 x max|g|;
+      the float32 step's classifier head within 1e-4 x max|g| and its
+      trunks (the STN's and the feature trunk's) against the float64 step
+      as in phase 8, since at this width the float32 step moves by more
+      than 1e-4 x max|g| outside the STN when the batch's rows are only
+      reordered (printed). One process and a group of any size share one
+      BatchNorm arithmetic (``models/layers.py``), so only the sums' order
+      differs. An eval pass of the model before the step, its sums
+      against the 1-process eval and its K2 launches (2 per rank); ms per
+      float32 step of each.
 
 Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
 slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
@@ -196,14 +233,14 @@ LABEL_TOL = 1e-5           # contact points, configs: 1e-5 x (1 + |ref|)
 EPS_RTOL, EPS_ATOL = 1e-4, 1e-6   # epsilons
 
 
-def k2_bounds(b, n):
+def k2_bounds(b, n, h3=1024):
     """K2's (3xTF32 tensor-core bound, all-fp32 CUDA-core bound) in ms at
-    (B, N): the larger of operations and bytes (inputs and weights read
-    once, the (B, 1024) output written once)."""
+    (B, N) and output width ``h3``: the larger of operations and bytes
+    (inputs and weights read once, the (B, h3) output written once)."""
     l1 = 2.0 * b * n * 3 * 64
-    l23 = 2.0 * b * n * (64 * 128 + 128 * 1024)
-    nbytes = (b * n * 3 + 3 * 64 + 64 + 64 * 128 + 128 + 128 * 1024
-              + 1024 + b * 1024) * 4
+    l23 = 2.0 * b * n * (64 * 128 + 128 * h3)
+    nbytes = (b * n * 3 + 3 * 64 + 64 + 64 * 128 + 128 + 128 * h3
+              + h3 + b * h3) * 4
     mem = nbytes / PEAK_BYTES
     return (max(3 * l23 / PEAK_TF32_FLOPS + l1 / PEAK_FP32_FLOPS, mem)
             * 1e3, max((l1 + l23) / PEAK_FP32_FLOPS, mem) * 1e3)
@@ -322,14 +359,21 @@ def sass_check(lib_path):
     def count(fn, pats):
         return sum(body(fn).count(p) for p in pats)
 
-    n_k2 = count("pointnet_trunk_kernel", pat_k2)
+    # K2's two template instances (mangled names): the whole trunk's, whose
+    # wgmma count is the tuned design's 96 (2 x 8 layer-2 k-steps and 16
+    # layer-3 k-steps of the chunk loop, 3 passes each), and a 512-row
+    # shard's
+    n_k2 = count("pointnet_trunk_kernelILi1024", pat_k2)
+    n_k2_512 = count("pointnet_trunk_kernelILi512", pat_k2)
     n_k1 = count("gpg_counts_kernel", pat_k1)
-    print(f"{kind} of the built kernels: pointnet_trunk_kernel "
-          f"{n_k2} x {pat_k2[0]}; gpg_counts_kernel {n_k1} tensor-core "
+    print(f"{kind} of the built kernels: pointnet_trunk_kernel<1024> "
+          f"{n_k2} x {pat_k2[0]}, pointnet_trunk_kernel<512> {n_k2_512} x "
+          f"{pat_k2[0]}; gpg_counts_kernel {n_k1} tensor-core "
           f"instructions; K1 built with {_build.SOURCES['gpg_counts.cu']}",
           flush=True)
-    if n_k2 == 0:
-        fail("K2 does not reach the tensor cores through wgmma")
+    if n_k2 != 96 or n_k2_512 == 0:
+        fail("K2 does not reach the tensor cores through wgmma as built "
+             "(96 per instance)")
     if n_k1 != 0:
         fail("K1 uses the tensor cores")
     # K3: no division. Its PTX, compiled with the library's own flags,
@@ -2576,6 +2620,365 @@ def cloud_phases(torch, card, dev="cuda", frame=None, torus=TORUS,
     return {"frame_ms": times["frame_cloud"], **times}
 
 
+# --------------------------------------------------------------------------
+# Phase 12: data and tensor parallelism on the one card
+
+def mesh_phases(torch, card, dev="cuda", ckpt=None, k2_1024_ms=None,
+                batch=128, cloud=20000, n_pts=750, n_clouds=100,
+                scene=None):
+    """Phase 12 (see the module docstring). Sizes are parameters, so that
+    the phase rehearses on the CPU at a small size. Returns the launches by
+    path and the 512-row instance's entry of the kernels line."""
+    import copy
+
+    from pointnetgpd_tpu_torch.draws import Draws
+    from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
+    from pointnetgpd_tpu_torch.models.pointnet import PointNetCls
+    from pointnetgpd_tpu_torch.ops import gpg_counts as k1
+    from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
+    from pointnetgpd_tpu_torch.ops.crop import collect_grasp_clouds_batched
+    from pointnetgpd_tpu_torch.parallel.mesh import make_mesh
+    from pointnetgpd_tpu_torch.parallel.ranks import run_step_ranks
+    from pointnetgpd_tpu_torch.parallel.tp import (make_2d_mesh,
+                                                   shard_params_tp)
+    from pointnetgpd_tpu_torch.robot.node import DetectorConfig, GraspDetector
+    from pointnetgpd_tpu_torch.training import train as ttrain
+    from pointnetgpd_tpu_torch.training.data import SyntheticGraspData
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    named = "cuda:0" if on_card else "cpu"
+    mesh = make_mesh(2, device=named)
+    pts, cam = scene or tabletop_scene()
+    out = {"by_path": {}}
+    t_phase = time.perf_counter()
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    single = GraspScorer.from_checkpoint(ckpt, device=dev, k=3)
+    with torch.no_grad():          # grasps to rank (as phase 10d does)
+        single.model.fc3.bias[-1] += 3.0
+    sharded = GraspScorer(model=copy.deepcopy(single.model), k=3,
+                          mesh=mesh)
+    if sharded.pad_to != single.pad_to or sharded.device != mesh.first:
+        fail("12: a 2-shard mesh changed the scorer's padding or device")
+    launch1, launch2 = k1.GpgScanContext._launch, k2._launch
+
+    def plain1(ctx, fx, sc, is_y):
+        return k1.gpg_scan_counts_torch(ctx.points, ctx.seeds, ctx.rot_rows,
+                                        fx, sc, ctx.boxes, scan_is_y=is_y)
+
+    # a. the frame on the mesh
+    for lazy in (True, False):
+        cfg = DetectorConfig(cloud_pad_to=4096, lazy_normals=lazy)
+        det_s = GraspDetector(single, config=cfg)
+        det_m = GraspDetector(sharded, config=cfg)
+        a = det_s.process_frame(pts, cam, seed=0)
+        rec = []
+
+        def rec1(ctx, fx, sc, is_y):
+            rec.append((ctx, fx.clone(), sc.clone(), is_y))
+            return launch1(ctx, fx, sc, is_y)
+
+        zero_counts()
+        k1.GpgScanContext._launch = rec1
+        try:
+            b = det_m.process_frame(pts, cam, seed=0)
+        finally:
+            k1.GpgScanContext._launch = launch1
+        n = read_counts()
+        k1_equal = True
+        for ctx, fx, sc, is_y in rec:
+            got, want = launch1(ctx, fx, sc, is_y), plain1(ctx, fx, sc, is_y)
+            k1_equal &= torch.equal(got[ctx.active], want[ctx.active])
+        e_fr = float(np.abs(a["all_frames"] - b["all_frames"]).max())
+        e_sc = float(np.abs(a["all_scores"] - b["all_scores"]).max())
+        e_rk = (float(np.abs(a["scores"] - b["scores"]).max())
+                if len(a["scores"]) else 0.0)
+        same = (a["n_valid"] == b["n_valid"]
+                and np.array_equal(a["pred"], b["pred"])
+                and np.array_equal(a["counts"], b["counts"])
+                and len(a["scores"]) == len(b["scores"])
+                and np.array_equal(a["grasps"], b["grasps"]))
+        ms = {}
+        for name, det in (("single", det_s), ("mesh", det_m)):
+            det.process_frame(pts, cam, seed=1)
+            sync()
+            t0 = time.perf_counter()
+            for s_ in range(3):
+                det.process_frame(pts, cam, seed=2 + s_)
+            sync()
+            ms[name] = (time.perf_counter() - t0) / 3 * 1e3
+        print(f"12a frame on a mesh of 2 shards on {named} (lazy_normals="
+              f"{lazy}): launches {n} (K1 3 and K2 2 per shard), n_valid "
+              f"{b['n_valid']} vs {a['n_valid']}, ranked {len(b['scores'])} "
+              f"vs {len(a['scores'])}, predictions, counts and ranked grasps "
+              f"equal {same}; max |frame err| {e_fr:.2e}, max |score err| "
+              f"{e_sc:.2e}, ranked scores {e_rk:.2e} (1e-6); each of the "
+              f"{len(rec)} recorded K1 launches equal to the plain version "
+              f"on its active frames: {k1_equal}; ms per frame (host clock, "
+              f"3 frames) single {ms['single']:.2f}, mesh {ms['mesh']:.2f} "
+              f"({card}; one card, not scaling)", flush=True)
+        want_n = {"gpg_counts": 3 * mesh.size * on_card,
+                  "pointnet_trunk": 2 * mesh.size * on_card,
+                  "point_triangle": 0}
+        if (n != want_n or not same or not k1_equal or e_fr > 1e-6
+                or e_sc > 1e-6 or e_rk > 1e-6 or len(b["scores"]) < 2
+                or len(rec) != want_n["gpg_counts"]):
+            fail(f"12a: the frame on the mesh (lazy_normals={lazy}) "
+                 f"disagrees with the single-device frame")
+        if lazy:
+            out["by_path"]["mesh_frame"] = n
+            out["frame_ms"] = ms
+
+    # b. score_clouds on the mesh, a count that is not a multiple of pad_to
+    rs = np.random.RandomState(12)
+    clouds = (rs.rand(n_clouds, 500, 3) * 0.04 - 0.02).astype(np.float32)
+    zero_counts()
+    pm, qm, vm = sharded.score_clouds(clouds, seed=1)
+    n = read_counts()
+    ps, qs, vs = single.score_clouds(clouds, seed=1)
+    e_q = float(np.abs(qm - qs).max())
+    print(f"12b score_clouds of {n_clouds} clouds (pad_to {sharded.pad_to})"
+          f" on the mesh: predictions equal {np.array_equal(pm, ps)}, votes "
+          f"equal {np.array_equal(vm, vs)}, max |prob err| {e_q:.2e} (1e-6),"
+          f" K2 launches {n['pointnet_trunk']} (2 per shard)", flush=True)
+    if (not np.array_equal(pm, ps) or not np.array_equal(vm, vs)
+            or e_q > 1e-6
+            or n["pointnet_trunk"] != 2 * mesh.size * on_card):
+        fail("12b: score_clouds on the mesh disagrees with the single device")
+
+    # c. tensor parallelism: the eval forward, K2's 512-row instance
+    model = single.model
+    tp = shard_params_tp(model, make_2d_mesh(2, mp=2, device=named))
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((64, 500, 3), generator=g, device=dev) * 0.02
+    widths = []
+
+    def rec2(x_, folded):
+        widths.append(int(folded[5].shape[0]))
+        return launch2(x_, folded)
+
+    with torch.no_grad():
+        ref = model(x)
+        zero_counts()
+        k2._launch = rec2
+        try:
+            got = tp(x)
+        finally:
+            k2._launch = launch2
+        n = read_counts()
+    e_tp = max(float((got[0] - ref[0]).abs().max()),
+               float((got[1] - ref[1]).abs().max()))
+    print(f"12c TP eval forward, mp=2 on {named}, (64, 500): max |err| "
+          f"against the replicated forward {e_tp:.2e} (2e-5); K2 launches "
+          f"{n['pointnet_trunk']}, widths {widths}", flush=True)
+    if e_tp > 2e-5 or (on_card and (n["pointnet_trunk"] != 4
+                                    or widths != [512] * 4)):
+        fail("12c: the TP forward disagrees or did not run K2's 512-row "
+             "instance on every shard")
+    out["by_path"]["tp_eval"] = n["pointnet_trunk"]
+    feat = tp.rows[0].feat
+    shard = feat.tp_shards.folded(feat, 0)
+    k512 = {}
+    for b_, n_ in ((64, 500), (128, 750)):
+        xs = torch.randn((b_, n_, 3), generator=g, device=dev) * 0.02
+        with torch.no_grad():
+            got = k2.fused_trunk(xs, shard)
+            want = k2.trunk_reference(xs, shard)
+        sync()
+        err = float((got - want).abs().max())
+        bad = int(((got - want).abs() > K2_TOL * (1 + want.abs())).sum())
+        k512[(b_, n_)] = (xs, err)
+        print(f"12c K2<512> B,N=({b_}, {n_}): max |kernel - plain| = "
+              f"{err:.3e} (tolerance 1e-4 * (1 + |plain|))", flush=True)
+        if bad or not torch.isfinite(got).all() or got.shape != (b_, 512):
+            fail(f"12c: K2's 512-row instance disagrees at ({b_}, {n_})")
+    xs = k512[(64, 500)][0]
+    w1, b1, w2, b2, w3, b3 = shard
+
+    def library():
+        h = torch.relu(torch.matmul(xs, w1) + b1)
+        h = torch.relu(torch.matmul(h, w2) + b2)
+        return torch.amax(torch.matmul(h, w3) + b3, dim=1)
+
+    if on_card:
+        ms512 = cuda_ms(torch, lambda: launch2(xs, shard), iters=50)
+        plain512 = cuda_ms(torch, lambda: k2.trunk_reference(xs, shard),
+                           iters=20)
+        lib512 = cuda_ms(torch, library, iters=20)
+    else:
+        ms512 = plain512 = lib512 = float("nan")
+    bound512 = k2_bounds(64, 500, 512)[0]
+    print(f"12c K2<512> at (64, 500): kernel {ms512:.4f} ms, plain "
+          f"{plain512:.4f} ms, library (3 matmul + max) {lib512:.4f} ms; "
+          f"bound {bound512:.5f} ms (3xTF32, operations), "
+          f"{100 * bound512 / ms512:.1f}% of it; K2<1024> in this run "
+          f"{k2_1024_ms} ms against its bound {k2_bounds(64, 500)[0]:.5f} "
+          f"ms ({card})", flush=True)
+    out["k512"] = {
+        "name": "pointnet_trunk_512", "route": "cuda",
+        "source": "pointnetgpd_tpu_torch/csrc/pointnet_trunk.cu",
+        "replaces": "pointnetgpd_tpu/ops/pointnet_trunk_pallas.py:106",
+        "launches": out["by_path"]["tp_eval"],
+        "launches_by_path": {"tp_eval": out["by_path"]["tp_eval"]},
+        "max_abs_err": max(e for _, e in k512.values()),
+        "ms": ms512, "plain_ms": plain512, "bound_ms": bound512,
+        "bound_by": "operations", "library_ms": lib512}
+
+    # d. the trainer over a process group on the one card
+    torch.manual_seed(0)
+    base = PointNetCls(k=2)
+    batch_np = list(SyntheticGraspData(batch, cloud_points=cloud,
+                                       learnable=True, seed=5).next_batch())
+    batch_np[4] = np.asarray(batch_np[4], np.float32).copy()
+    batch_np[4][batch // 2:batch // 2 + batch // 4] = 0.0   # second half
+    args = [torch.as_tensor(a).to(dev) for a in batch_np]
+    args[3], args[4] = args[3].long(), args[4].float()
+    c_ev, _, v_ev = collect_grasp_clouds_batched(*args[:3], Draws(12, dev),
+                                                 num_out=n_pts)
+    ev1 = ttrain.make_eval_step()(copy.deepcopy(base).to(dev), c_ev, args[3],
+                                  args[4] * v_ev.float())
+    one = {}            # the 1-process steps: (metrics, grads, BN stats)
+    for dt in (None, torch.float64):
+        st, m = ttrain.make_fused_train_step(num_points=n_pts,
+                                             compute_dtype=dt)(
+            ttrain.init_train_state(copy.deepcopy(base).to(dev),
+                                    ttrain.make_optimizer(0.005)),
+            *args, Draws(11, dev))
+        one[dt] = (m, {k_: p.grad.double().cpu()
+                       for k_, p in st.model.named_parameters()},
+                   {k_: v.double().cpu() for k_, v in
+                    st.model.named_buffers() if "running" in k_})
+    cropped, _, valid = collect_grasp_clouds_batched(
+        *args[:3], Draws(11, dev), num_out=n_pts)
+    m64 = copy.deepcopy(base).double().train()
+    ttrain.masked_nll_loss(m64(cropped.cpu().double())[0], args[3].cpu(),
+                           (args[4] * valid).cpu().double()).backward()
+    g64 = {k_: p.grad for k_, p in m64.named_parameters()}
+    # the float32 1-process step on the batch's rows in another order: the
+    # same sum in another order, i.e. the step's own rounding
+    perm = torch.randperm(batch, generator=torch.Generator().manual_seed(1))
+    perm = perm.to(dev)
+    mp_ = copy.deepcopy(base).to(dev).train()
+    ttrain.masked_nll_loss(mp_(cropped[perm])[0], args[3][perm],
+                           (args[4] * valid)[perm]).backward()
+    g_perm = {k_: p.grad.double().cpu() for k_, p in mp_.named_parameters()}
+    step = ttrain.make_fused_train_step(num_points=n_pts)
+    st = ttrain.init_train_state(copy.deepcopy(base).to(dev),
+                                 ttrain.make_optimizer(0.005))
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        st, _ = step(st, *args, Draws(13, dev))
+    sync()
+    ms1 = (time.perf_counter() - t0) / 3 * 1e3
+    g_max = max(float(v.abs().max()) for v in g64.values())
+
+    def err_of(grads, ref, keys):
+        """(largest |grads - ref| over max|g|, its parameter) over keys."""
+        return max(((float((grads[k_].double() - ref[k_].double()).abs()
+                           .max()) / g_max, k_) for k_ in keys),
+                   default=(0.0, ""))
+
+    # the float64 step (``compute_dtype``) on the ranks is held to the
+    # 1-process float64 step on every gradient, to 1e-4 x max|g|. In the
+    # float32 step the trunks' gradients are ill-conditioned at this width
+    # (ROADMAP Queue C items 2 and 15): reordering the batch's rows moves
+    # the 1-process step by more than 1e-4 x max|g| outside the STN too. So
+    # the float32 step on the ranks is held to it on the loss, the BN
+    # statistics and the head's gradients, and on the trunks' (the STN's
+    # and the feature trunk's) to the float64 step, at most twice the
+    # 1-process step's error plus 1e-4, as in phase 8
+    real = [k_ for k_ in g64 if float(g64[k_].abs().max()) >= 1e-10 * g_max]
+    head = [k_ for k_ in real if not k_.startswith("feat.")]
+    trunk = [k_ for k_ in real if k_.startswith("feat.")]
+    rest = [k_ for k_ in real if not k_.startswith("feat.stn.")]
+    g1 = one[None][1]
+    e_trunk1 = err_of(g1, g64, trunk)[0]
+    e_perm = err_of(g_perm, g1, rest)
+    print(f"12d the float32 1-process step on {named} against itself on the "
+          f"batch's rows in another order: gradients outside the STN "
+          f"{e_perm[0]:.2e} x max|g| ({e_perm[1]}); its trunks' against "
+          f"float64 {e_trunk1:.2e}", flush=True)
+    case = dict(name="1v", gpd=False, model=base, batch=batch_np,
+                num_points=n_pts, min_point_limit=50, seed=11, eval_seed=12,
+                time_steps=3)
+    case64 = dict(name="1v float64", gpd=False, model=base, batch=batch_np,
+                  num_points=n_pts, min_point_limit=50, seed=11,
+                  compute_dtype=torch.float64)
+    runs = {}
+    for world, backend in ((1, "nccl" if on_card else "gloo"), (2, "gloo")):
+        t0 = time.perf_counter()
+        ranks = run_step_ranks({"device": named, "cases": [case, case64]},
+                               world, backend, timeout=300)
+        wall = time.perf_counter() - t0
+        bad = []
+        for i, dt in enumerate((None, torch.float64)):
+            m1, g1, bn1 = one[dt]
+            r = [rk[i] for rk in ranks]
+            rel = abs(r[0]["metrics"]["loss"] - float(m1["loss"])) / abs(
+                float(m1["loss"]))
+            e_bn = max(float(((r[0]["buffers"][k_].double() - v).abs()
+                              / (1 + v.abs())).max())
+                       for k_, v in bn1.items())
+            ranks_equal = all(torch.equal(r[0]["grads"][k_], x_["grads"][k_])
+                              for x_ in r[1:] for k_ in g1)
+            if dt is None:
+                e_head = err_of(r[0]["grads"], g1, head)
+                e_rest = err_of(r[0]["grads"], g1, rest)
+                e_trunk = err_of(r[0]["grads"], g64, trunk)
+                grads_ok = (e_head[0] <= 1e-4
+                            and e_trunk[0] <= 2 * e_trunk1 + 1e-4)
+                said = (f"the head's gradients {e_head[0]:.2e} x max|g| "
+                        f"from the 1-process step's (1e-4), all outside the "
+                        f"STN {e_rest[0]:.2e} ({e_rest[1]}); the trunks' "
+                        f"against float64 {e_trunk[0]:.2e} ({e_trunk[1]}) "
+                        f"vs the 1-process step's {e_trunk1:.2e} (at most "
+                        f"twice plus 1e-4)")
+            else:
+                e_all = err_of(r[0]["grads"], g1, real)
+                grads_ok = e_all[0] <= 1e-4
+                said = (f"every gradient {e_all[0]:.2e} x max|g| "
+                        f"({e_all[1]}) from the 1-process step's (1e-4)")
+            ok = (rel <= 1e-6 and e_bn <= 1e-5 and grads_ok and ranks_equal)
+            line = (f"12d {r[0]['name']} train step on {world} rank(s) over "
+                    f"{backend} on {named} (global batch {batch}, "
+                    f"{int(batch_np[4].sum())} weighted): loss "
+                    f"{r[0]['metrics']['loss']:.7f} vs 1-process "
+                    f"{float(m1['loss']):.7f} (rel {rel:.2e}, 1e-6); BN "
+                    f"running statistics {e_bn:.2e} x (1 + |ref|) (1e-5); "
+                    f"{said}; ranks' gradients equal {ranks_equal}")
+            if dt is None:
+                ev = r[0]["eval"][0]
+                ev_ok = (ev["count"] == float(ev1["count"])
+                         and ev["correct"] == float(ev1["correct"])
+                         and abs(ev["loss_sum"] - float(ev1["loss_sum"]))
+                         <= 1e-5 * abs(float(ev1["loss_sum"])))
+                ev_launches = sum(x_["eval"][1] for x_ in r)
+                runs[world] = ev_launches
+                ok = ok and ev_ok and (not on_card
+                                       or ev_launches == 2 * world)
+                line += (f"; eval sums {ev} vs 1-process "
+                         f"{ {k_: float(v) for k_, v in ev1.items()} } equal "
+                         f"{ev_ok}, K2 launches in the eval pass "
+                         f"{[x_['eval'][1] for x_ in r]}; ms per step "
+                         f"{[round(x_['ms'], 2) for x_ in r]} against "
+                         f"{ms1:.2f} in one process; {wall:.1f} s with the "
+                         f"ranks' start ({card}; one card, not scaling)")
+            print(line, flush=True)
+            if not ok:
+                bad.append(r[0]["name"])
+        if bad:
+            fail(f"12d: the step ({bad}) on {world} rank(s) disagrees with "
+                 f"the 1-process step")
+    out["by_path"]["ddp_eval"] = runs[2]
+    print(f"12 done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -2888,6 +3291,10 @@ def main():
         shutil.rmtree(keep, ignore_errors=True)
     # 11. the RGB-D -> cloud path
     clouds = cloud_phases(torch, card)
+    # 12. data and tensor parallelism on the one card
+    par = mesh_phases(torch, card, ckpt=ckpt,
+                      k2_1024_ms=round(timing["k2_64x500"], 4))
+    mesh_frame = par["by_path"]["mesh_frame"]
     ros = entry["10d run_ros_node pipeline=False"]
     print(f"kernel launches by path: frame {launches['gpg_counts']} K1 and "
           f"{launches['pointnet_trunk']} K2 (3 frames), training eval "
@@ -2900,7 +3307,11 @@ def main():
           f"{entry['10c warmup']['pointnet_trunk']} K2 (its buckets), ROS "
           f"node {ros['gpg_counts']} K1 and {ros['pointnet_trunk']} K2 "
           f"(3 frames); the cloud path none (11a frame "
-          f"{clouds['frame_ms']:.3f} ms)", flush=True)
+          f"{clouds['frame_ms']:.3f} ms); the mesh frame "
+          f"{mesh_frame['gpg_counts']} K1 and {mesh_frame['pointnet_trunk']} "
+          f"K2 (1 frame, 2 shards), the TP eval forward "
+          f"{par['by_path']['tp_eval']} K2<512> (2 shards), the DDP eval "
+          f"pass {par['by_path']['ddp_eval']} K2 (2 ranks)", flush=True)
     print(f"labeling summary ({card}): {label['gps3']:.1f} labeled grasps/s "
           f"(3-D), {label['gps6']:.1f} (6-D); one torus object "
           f"{label['9b']['cold_s']:.2f} s cold, {label['9b']['warm_s']:.2f} s "
@@ -2917,7 +3328,8 @@ def main():
          "launches_by_path": {"frame": launches["gpg_counts"],
                               "labeling": label["k1_launches"],
                               "warmup": entry["10c warmup"]["gpg_counts"],
-                              "ros_node": ros["gpg_counts"]},
+                              "ros_node": ros["gpg_counts"],
+                              "mesh_frame": mesh_frame["gpg_counts"]},
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
@@ -2932,12 +3344,16 @@ def main():
              "dual_scorer": entry["10b dual"]["pointnet_trunk"],
              "bf16_scorer": entry["10b bf16"]["pointnet_trunk"],
              "warmup": entry["10c warmup"]["pointnet_trunk"],
-             "ros_node": ros["pointnet_trunk"]},
+             "ros_node": ros["pointnet_trunk"],
+             "mesh_frame": mesh_frame["pointnet_trunk"],
+             "tp_eval": par["by_path"]["tp_eval"],
+             "ddp_eval": par["by_path"]["ddp_eval"]},
          "max_abs_err": k2_err["64x500"], "ms": timing["k2_64x500"],
          "plain_ms": timing["k2_plain_64x500"], "bound_ms": k2_bound,
          "bound_by": "operations",
          "library_ms": timing["k2_library_64x500"]},
         k3_entry,
+        par["k512"],
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

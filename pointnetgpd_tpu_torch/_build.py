@@ -43,8 +43,8 @@ SIGNATURES = {
     # stream
     "empty_launch": [P],
     # x, B, N, C, w1, b1, w2 big, w2 small, b2, w3 big, w3 small, b3, out,
-    # stream
-    "pointnet_trunk_launch": [P, I, I, I, P, P, P, P, P, P, P, P, P, P],
+    # output width, stream
+    "pointnet_trunk_launch": [P, I, I, I, P, P, P, P, P, P, P, P, P, I, P],
     # pts, n_blocks, tri_data, sup_data, n_sup, out, stats (or null), stream
     "point_triangle_launch": [P, I, P, P, I, P, P, P],
 }

@@ -4,7 +4,11 @@ Port of ``pointnetgpd_tpu/cli/train.py``: main_1v.py / main_1v_mc.py /
 main_fullv.py / main_fullv_mc.py / main_1v_gpd.py / main_fullv_gpd.py
 (reference PointNetGPD/main_*.py, README.md:183-191) behind a --variant
 switch; flags mirror the reference's argparse set (main_1v.py:18-31), plus
-``--device`` (default ``cuda``).
+``--device`` (default ``cuda``) and ``--n-devices`` (JAX ``:78``, ``:104``;
+default 1): with N > 1 the command starts N ranks with
+``torch.multiprocessing`` (NCCL on the card, rank r on card r; gloo for
+``--device cpu``), each holding its rows of every global batch; under
+``torchrun`` it joins the group that torchrun describes instead.
 
 Variant configs (reference deltas):
   1v        OneView 2-class, 750 pts, thresh .6/.6, k=2
@@ -16,6 +20,9 @@ Variant configs (reference deltas):
 
 Usage:
   python -m pointnetgpd_tpu_torch.cli.train --variant 1v --mode train --synthetic
+  python -m pointnetgpd_tpu_torch.cli.train ... --n-devices 4
+  torchrun --nproc-per-node 4 -m pointnetgpd_tpu_torch.cli.train ... \
+      --n-devices 4
   (data root from $PointNetGPD_FOLDER, reference layout; --synthetic for a
   generated stand-in dataset when the YCB assets are absent)
 """
@@ -77,11 +84,37 @@ def build_parser():
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (default: the card)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--n-devices", type=int, default=1,
+                   help="data-parallel ranks (one process each)")
     return p
+
+
+def _rank_main(rank, world, argv):
+    """One spawned rank: the process group is up."""
+    run(build_parser().parse_args(argv))
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if args.n_devices > 1:
+        from ..parallel import dist as pdist
+        from ..parallel.mesh import initialize_distributed
+
+        if pdist.environment_rank() is not None:       # under torchrun
+            world = initialize_distributed(device=args.device)
+            if world != args.n_devices:
+                raise SystemExit(f"--n-devices {args.n_devices} but the "
+                                 f"environment's world size is {world}")
+            return run(args)
+        backend = "nccl" if args.device.startswith("cuda") else "gloo"
+        pdist.spawn(_rank_main, args.n_devices, backend,
+                    args=(sys.argv[1:] if argv is None else list(argv),),
+                    timeout=float("inf"))
+        return 0
+    return run(args)
+
+
+def run(args):
     var = VARIANTS[args.variant]
 
     from ..training.data import (GraspDataIndex, OneViewBatcher,
@@ -103,6 +136,7 @@ def main(argv=None):
         log_dir=args.log_dir,
         seed=args.seed,
         device=args.device,
+        n_devices=args.n_devices,
         gpd=var["gpd"],
         project_chann=var.get("project_chann", 3),
     )
@@ -138,7 +172,8 @@ def main(argv=None):
             if not resumed:
                 trainer.maybe_resume()
             acc, loss = trainer.evaluate()
-            print(f"Test done, acc={acc}, loss={loss}")
+            if trainer.rank == 0:
+                print(f"Test done, acc={acc}, loss={loss}")
     finally:
         trainer.close()
     return 0

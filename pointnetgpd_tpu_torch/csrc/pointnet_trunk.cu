@@ -47,6 +47,12 @@
 //   registers (over a thread's two rows, then shuffles across the 8 row
 //   groups of a warp, then the 8 warps through shared memory); the bias is
 //   added after the max (max(x) + b = max(x + b) under rounding).
+// - the output width H3 is a template parameter: 1024 for a whole trunk,
+//   512 for one shard of a trunk whose conv3 rows are split over two
+//   devices (tensor parallelism; the max over points is per channel, so a
+//   shard's trunk is exactly this kernel on its rows). The 512 instance
+//   streams its 8 chunks of w3 by the same ring; everything else is
+//   shared.
 // Shared memory uses the wgmma no-swizzle layout: 8-row x 16-byte core
 // matrices, K-adjacent core matrices 128 bytes apart (the descriptor's
 // leading byte offset), 8-row groups K/4 * 128 bytes apart (its stride byte
@@ -58,9 +64,7 @@
 #define C_MAX 8
 #define H1 64
 #define H2 128
-#define H3 1024
 #define NC 64                  // layer-3 output channels per chunk
-#define N_CHUNKS (H3 / NC)
 #define TILE_P 128             // points per block: two warpgroups of 64
 #define NT 256
 #define N_WARPS (NT / 32)
@@ -185,6 +189,7 @@ __global__ void fill_neg_inf(float* __restrict__ out, int n) {
   if (i < n) out[i] = __uint_as_float(0xff800000u);
 }
 
+template <int H3>
 __global__ void __launch_bounds__(NT, 1)
 pointnet_trunk_kernel(const float* __restrict__ x, int N, int C,
                       const float* __restrict__ w1, const float* __restrict__ b1,
@@ -192,6 +197,8 @@ pointnet_trunk_kernel(const float* __restrict__ x, int N, int C,
                       const float* __restrict__ b2,
                       const float* __restrict__ w3b, const float* __restrict__ w3s,
                       const float* __restrict__ b3, float* __restrict__ out) {
+  constexpr int N_CHUNKS = H3 / NC;
+  static_assert(N_CHUNKS >= 2, "the ring preloads two chunks");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t sbase = (uint32_t)__cvta_generic_to_shared(smem);
   float* red = reinterpret_cast<float*>(smem + OFF_RED);  // [2][N_WARPS][NC]
@@ -368,25 +375,41 @@ pointnet_trunk_kernel(const float* __restrict__ x, int N, int C,
   }
 }
 
+template <int H3>
+static int launch(const float* x, int B, int N, int C, const float* w1, const float* b1,
+                  const float* w2b, const float* w2s, const float* b2, const float* w3b,
+                  const float* w3s, const float* b3, float* out, cudaStream_t st) {
+  // the dynamic shared-memory opt-in is a property of the function on each
+  // device
+  static bool smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!smem_set[dev]) {
+    err = cudaFuncSetAttribute(pointnet_trunk_kernel<H3>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[dev] = true;
+  }
+  fill_neg_inf<<<(B * H3 + 255) / 256, 256, 0, st>>>(out, B * H3);
+  dim3 grid((N + TILE_P - 1) / TILE_P, B);
+  pointnet_trunk_kernel<H3><<<grid, NT, SMEM_BYTES, st>>>(x, N, C, w1, b1, w2b, w2s, b2,
+                                                          w3b, w3s, b3, out);
+  return (int)cudaGetLastError();
+}
+
+// H3: the output width, 1024 or 512
 extern "C" int pointnet_trunk_launch(const float* x, int B, int N, int C,
                                      const float* w1, const float* b1,
                                      const float* w2b, const float* w2s,
                                      const float* b2, const float* w3b,
                                      const float* w3s, const float* b3,
-                                     float* out, void* stream) {
+                                     float* out, int H3, void* stream) {
   if (C < 1 || C > C_MAX || N < 1 || B < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        pointnet_trunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
   cudaStream_t st = (cudaStream_t)stream;
-  fill_neg_inf<<<(B * H3 + 255) / 256, 256, 0, st>>>(out, B * H3);
-  dim3 grid((N + TILE_P - 1) / TILE_P, B);
-  pointnet_trunk_kernel<<<grid, NT, SMEM_BYTES, st>>>(x, N, C, w1, b1, w2b, w2s, b2,
-                                                      w3b, w3s, b3, out);
-  return (int)cudaGetLastError();
+  if (H3 == 1024) return launch<1024>(x, B, N, C, w1, b1, w2b, w2s, b2, w3b, w3s, b3, out, st);
+  if (H3 == 512) return launch<512>(x, B, N, C, w1, b1, w2b, w2s, b2, w3b, w3s, b3, out, st);
+  return (int)cudaErrorInvalidValue;
 }

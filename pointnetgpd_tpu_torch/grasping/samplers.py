@@ -123,6 +123,88 @@ def _covariance_frames(points, normals, seed_idx, seeds_xyz, knn, r_ball,
     return m_ok, normal, major, minor
 
 
+def _frames_block(points, seeds_rep, rr, m_ok_rep, above_rep, pre_ok, *,
+                  gripper, boxes_np, hand_pts_local, dys, bite, approach_step,
+                  approach_steps, safety_dis_above_table, min_open_points,
+                  debug):
+    """The three scans and the per-frame glue for a block of frames (each
+    frame independent given the cloud): (frames (F, 5, 3), valid (F,),
+    stages (F, 7): with ``debug`` the per-guard funnel masks, cumulative in
+    the reference's guard order).""" 
+    dev, dtype = points.device, points.dtype
+    n_frames, n_dy = seeds_rep.shape[0], dys.shape[0]
+    t_normal, t_major, minor_rep = rr[:, 0], rr[:, 1], rr[:, 2]
+    # debug needs real counts for every frame (funnel attribution)
+    ctx = GpgScanContext(points, seeds_rep, rr, boxes_np,
+                         active=torch.ones_like(pre_ok) if debug else pre_ok)
+    # dy scan (grasp_sampler.py:1539-1563): middle valid dy
+    c1 = ctx.counts(torch.full((n_frames,), -bite, dtype=dtype, device=dev),
+                    dys.expand(n_frames, n_dy), scan_is_y=True)  # (F, dy, 4)
+    oks = ((c1[..., 0] > 0) & (c1[..., 1] == 0) & (c1[..., 2] == 0)
+           & (c1[..., 3] == 0))
+    n_ok = oks.sum(dim=1)
+    target = torch.ceil(n_ok / 2.0).to(torch.int32)
+    cum = torch.cumsum(oks.to(torch.int32), dim=1)
+    pick = torch.argmax(((cum == target[:, None]) & oks).to(torch.int8),
+                        dim=1)
+    dy_pick = dys[pick]
+    base = fma(t_major, dy_pick[:, None], seeds_rep)
+    bc = fma(t_normal, -bite, base)
+
+    # downward-grasp guard (grasp_sampler.py:1564-1569)
+    finger_top = fma(t_normal, gripper.hand_depth, bc)
+    downward = finger_top[:, 2] < bc[:, 2] - gripper.hand_depth * 0.5
+    theta_ok = (n_ok > 0) & downward
+
+    # approach along +normal until collision (grasp_sampler.py:1574-1585)
+    steps = torch.arange(approach_steps, dtype=dtype,
+                         device=dev) * approach_step
+    c2 = ctx.counts(dy_pick,
+                    (-bite + steps).expand(n_frames, approach_steps),
+                    scan_is_y=False)
+    collides = (c2[..., 1] > 0) | (c2[..., 2] > 0) | (c2[..., 3] > 0)
+    hit = collides.any(dim=1)
+    s_hit = steps[torch.argmax(collides.to(torch.int8), dim=1)]
+    x_bc2 = (-bite + s_hit) - approach_step * 3.0                 # (F,)
+    bc2 = fma(x_bc2[:, None], t_normal, base)
+
+    # table clearance (grasp_sampler.py:1588-1605); world hand points
+    hp = hand_pts_local[None, :, :, None]                         # (1,20,3,1)
+    r3 = rr[:, None]                                              # (F,1,3,3)
+    hp_local = dot3(hp[:, :, 0], r3[..., 0, :], hp[:, :, 1], r3[..., 1, :],
+                    hp[:, :, 2], r3[..., 2, :])                   # (F, 20, 3)
+    hp_world = bc2[:, None, :] + hp_local
+    min_i = torch.argmin(hp_world[..., 2], dim=1)
+    min_pos = hp_world[torch.arange(n_frames, device=dev), min_i]  # (F, 3)
+    nz_safe = torch.where(torch.abs(t_normal[:, 2]) < 1e-9, 1e-9,
+                          t_normal[:, 2])
+    tx = -min_pos[:, 2] * t_normal[:, 0] / nz_safe + min_pos[:, 0]
+    ty = -min_pos[:, 2] * t_normal[:, 1] / nz_safe + min_pos[:, 1]
+    p_table = torch.stack([tx, ty, torch.zeros_like(tx)], dim=1)
+    dis_go_back = norm3(min_pos - p_table) + safety_dis_above_table
+    need_adjust = min_pos[:, 2] < safety_dis_above_table
+    bc_mod = torch.where(need_adjust[:, None],
+                         fma(t_normal, -dis_go_back[:, None], bc2), bc2)
+    x_mod = x_bc2 - torch.where(need_adjust, dis_go_back, 0.0)
+
+    # final checks (grasp_sampler.py:1607-1614)
+    c3 = ctx.counts(dy_pick, x_mod[:, None], scan_is_y=False)[:, 0]
+    final_ok = ((c3[:, 0] > min_open_points) & (c3[:, 1] == 0)
+                & (c3[:, 2] == 0) & (c3[:, 3] == 0))
+    valid = m_ok_rep & theta_ok & hit & final_ok & above_rep & pre_ok
+    frames = torch.stack([bc2, t_normal, t_major, minor_rep, bc_mod], dim=1)
+    if not debug:
+        return frames, valid, valid[:, None]
+    m1 = above_rep
+    m2 = m1 & m_ok_rep
+    m3 = m2 & (n_ok > 0)
+    m4 = m3 & downward
+    m5 = m4 & hit
+    m6 = m5 & (c3[:, 0] > min_open_points)
+    m7 = m6 & (c3[:, 1] == 0) & (c3[:, 2] == 0) & (c3[:, 3] == 0) & pre_ok
+    return frames, valid, torch.stack([m1, m2, m3, m4, m5, m6, m7], dim=1)
+
+
 def gpg_sample_candidates(
     points,
     normals,
@@ -148,6 +230,7 @@ def gpg_sample_candidates(
     debug: bool = False,
     draws=None,
     seed: int = 0,
+    mesh=None,
 ):
     """GPG candidate generation, batched over (seed, theta) frames.
 
@@ -160,6 +243,10 @@ def gpg_sample_candidates(
         (e.g. SDF curvature frames) that replace the r-ball covariance
         estimate.
     draws: the source of the seed uniforms (default ``Draws(seed)``).
+    mesh: a ``parallel.mesh.Mesh`` (JAX ``:258``, ``:630-670``): the frame
+        axis is split over its shards after every draw, each shard's three
+        scans run on its device (K1 launches 3 times per shard), and the
+        frames are gathered once.
     Returns ``GpgCandidates`` of num_seeds * n_theta frames in the random
     seed-selection order; with ``debug=True`` also a funnel dict keyed by
     ``FUNNEL_STAGES`` (+ ``seed_heights``).
@@ -235,15 +322,22 @@ def gpg_sample_candidates(
     rr = rr.reshape(n_frames, 3, 3)
     seeds_rep = seeds_xyz.repeat_interleave(n_theta, dim=0)       # (F, 3)
     bite = float(gripper.init_bite)
-    boxes_np = panel_box_array(gripper)
     m_ok_rep = seed_m_ok.repeat_interleave(n_theta)
     above_rep = seed_ok.repeat_interleave(n_theta)
 
     # hoist the scan-independent validity (the downward guard reduces to
     # t_normal.z < -0.5) and compact the frame axis: frames that cannot be
-    # valid move behind the others and get no counts on the card
+    # valid move behind the others and get no counts on the card. With a
+    # mesh, the active frames go round-robin over the shards (JAX's
+    # two-key sort), so each shard keeps an equal share of the scan work
+    ndev = 1 if mesh is None else mesh.size
     pre_ok = m_ok_rep & above_rep & (rr[:, 0, 2] < -0.5 + 1e-3)
-    cperm = torch.argsort((~pre_ok).to(torch.int8), stable=True)
+    key = (~pre_ok).to(torch.int64)
+    if ndev > 1:
+        ri = torch.where(pre_ok, torch.cumsum(pre_ok, 0) - 1,
+                         torch.cumsum(~pre_ok, 0) - 1)
+        key = (ri % ndev) * 2 + key
+    cperm = torch.argsort(key, stable=True)
     cunsort = torch.argsort(cperm, stable=True)
     seeds_rep = seeds_rep[cperm]
     rr = rr[cperm]
@@ -251,67 +345,31 @@ def gpg_sample_candidates(
     above_rep = above_rep[cperm]
     pre_ok = pre_ok[cperm]
 
-    t_normal, t_major, minor_rep = rr[:, 0], rr[:, 1], rr[:, 2]
-    # debug needs real counts for every frame (funnel attribution)
-    ctx = GpgScanContext(points, seeds_rep, rr, boxes_np,
-                         active=torch.ones_like(pre_ok) if debug else pre_ok)
+    block = dict(gripper=gripper, boxes_np=panel_box_array(gripper),
+                 hand_pts_local=hand_pts_local, dys=dys, bite=bite,
+                 approach_step=approach_step, approach_steps=approach_steps,
+                 safety_dis_above_table=safety_dis_above_table,
+                 min_open_points=min_open_points, debug=debug)
+    if mesh is None:
+        frames, valid, stages = _frames_block(
+            points, seeds_rep, rr, m_ok_rep, above_rep, pre_ok, **block)
+    else:
+        # frames are independent given the replicated cloud: split the
+        # frame axis after every draw; pad frames carry above_rep = False
+        # and identity rotations (JAX :646-663)
+        from ..parallel import mesh as pmesh
 
-    # dy scan (grasp_sampler.py:1539-1563): middle valid dy
-    c1 = ctx.counts(torch.full((n_frames,), -bite, dtype=dtype, device=dev),
-                    dys.expand(n_frames, n_dy), scan_is_y=True)  # (F, dy, 4)
-    oks = ((c1[..., 0] > 0) & (c1[..., 1] == 0) & (c1[..., 2] == 0)
-           & (c1[..., 3] == 0))
-    n_ok = oks.sum(dim=1)
-    target = torch.ceil(n_ok / 2.0).to(torch.int32)
-    cum = torch.cumsum(oks.to(torch.int32), dim=1)
-    pick = torch.argmax(((cum == target[:, None]) & oks).to(torch.int8),
-                        dim=1)
-    dy_pick = dys[pick]
-    base = fma(t_major, dy_pick[:, None], seeds_rep)
-    bc = fma(t_normal, -bite, base)
-
-    # downward-grasp guard (grasp_sampler.py:1564-1569)
-    finger_top = fma(t_normal, gripper.hand_depth, bc)
-    downward = finger_top[:, 2] < bc[:, 2] - gripper.hand_depth * 0.5
-    theta_ok = (n_ok > 0) & downward
-
-    # approach along +normal until collision (grasp_sampler.py:1574-1585)
-    steps = torch.arange(approach_steps, dtype=dtype,
-                         device=dev) * approach_step
-    c2 = ctx.counts(dy_pick,
-                    (-bite + steps).expand(n_frames, approach_steps),
-                    scan_is_y=False)
-    collides = (c2[..., 1] > 0) | (c2[..., 2] > 0) | (c2[..., 3] > 0)
-    hit = collides.any(dim=1)
-    s_hit = steps[torch.argmax(collides.to(torch.int8), dim=1)]
-    x_bc2 = (-bite + s_hit) - approach_step * 3.0                 # (F,)
-    bc2 = fma(x_bc2[:, None], t_normal, base)
-
-    # table clearance (grasp_sampler.py:1588-1605); world hand points
-    hp = hand_pts_local[None, :, :, None]                         # (1,20,3,1)
-    r3 = rr[:, None]                                              # (F,1,3,3)
-    hp_local = dot3(hp[:, :, 0], r3[..., 0, :], hp[:, :, 1], r3[..., 1, :],
-                    hp[:, :, 2], r3[..., 2, :])                   # (F, 20, 3)
-    hp_world = bc2[:, None, :] + hp_local
-    min_i = torch.argmin(hp_world[..., 2], dim=1)
-    min_pos = hp_world[torch.arange(n_frames, device=dev), min_i]  # (F, 3)
-    nz_safe = torch.where(torch.abs(t_normal[:, 2]) < 1e-9, 1e-9,
-                          t_normal[:, 2])
-    tx = -min_pos[:, 2] * t_normal[:, 0] / nz_safe + min_pos[:, 0]
-    ty = -min_pos[:, 2] * t_normal[:, 1] / nz_safe + min_pos[:, 1]
-    p_table = torch.stack([tx, ty, torch.zeros_like(tx)], dim=1)
-    dis_go_back = norm3(min_pos - p_table) + safety_dis_above_table
-    need_adjust = min_pos[:, 2] < safety_dis_above_table
-    bc_mod = torch.where(need_adjust[:, None],
-                         fma(t_normal, -dis_go_back[:, None], bc2), bc2)
-    x_mod = x_bc2 - torch.where(need_adjust, dis_go_back, 0.0)
-
-    # final checks (grasp_sampler.py:1607-1614)
-    c3 = ctx.counts(dy_pick, x_mod[:, None], scan_is_y=False)[:, 0]
-    final_ok = ((c3[:, 0] > min_open_points) & (c3[:, 1] == 0)
-                & (c3[:, 2] == 0) & (c3[:, 3] == 0))
-    valid = m_ok_rep & theta_ok & hit & final_ok & above_rep & pre_ok
-    frames = torch.stack([bc2, t_normal, t_major, minor_rep, bc_mod], dim=1)
+        f_pad = pmesh.pad_to_multiple(n_frames, ndev)
+        eye = torch.eye(3, dtype=dtype, device=dev).expand(
+            f_pad - n_frames, 3, 3)
+        parts = [pmesh.shard_batch(t, mesh) for t in
+                 (seeds_rep, torch.cat([rr, eye]), m_ok_rep, above_rep,
+                  pre_ok)]
+        frames, valid, stages = pmesh.gather(pmesh.run_shards(
+            mesh, lambda s, pts, *a: _frames_block(pts, *a, **block),
+            pmesh.replicate(points, mesh), *parts), dev)
+        frames, valid, stages = (frames[:n_frames], valid[:n_frames],
+                                 stages[:n_frames])
 
     # compaction order -> Morton order -> random seed order
     frames = frames[cunsort].reshape(num_seeds, n_theta, 5, 3)[unsort]
@@ -319,15 +377,7 @@ def gpg_sample_candidates(
     cands = GpgCandidates(frames.reshape(-1, 5, 3), valid.reshape(-1))
     if not debug:
         return cands
-    # per-guard funnel, cumulative in the reference's guard order
-    m1 = above_rep
-    m2 = m1 & m_ok_rep
-    m3 = m2 & (n_ok > 0)
-    m4 = m3 & downward
-    m5 = m4 & hit
-    m6 = m5 & (c3[:, 0] > min_open_points)
-    m7 = m6 & (c3[:, 1] == 0) & (c3[:, 2] == 0) & (c3[:, 3] == 0) & pre_ok
-    sums = torch.stack([m1, m2, m3, m4, m5, m6, m7], dim=1).sum(dim=0)
+    sums = stages.sum(dim=0)
     funnel = {"frames": torch.tensor(n_frames, dtype=torch.int32)}
     for i, name in enumerate(FUNNEL_STAGES[1:]):
         funnel[name] = sums[i].to(torch.int32)

@@ -8,7 +8,17 @@ that quirk is kept, as is the vote's tie break toward the smallest class
 checkpoints (the JAX scorer's ``dual=True``), a ``DualPointNetCls`` that
 scores (G, P, 6) clouds through ``score_clouds``. ``as_dtype`` casts the
 model (bf16: every trunk still runs K2 in float32, see
-``models/pointnet.py``). ``mesh`` sharding comes in a later slice.
+``models/pointnet.py``).
+
+``mesh`` (a ``parallel.mesh.Mesh``; JAX ``:158-194``): the candidate axis is
+split over the mesh's shards and the model replicated, one copy per device.
+``pad_to`` follows JAX's rule (``max(pad_to, n)`` where n divides it, else
+``pad_to * n``), since the padded count decides the crop's strategy and the
+shape of the draws. Each shard crops, resamples and scores its candidates in
+a thread of its own (K2 launches once per trunk per shard); every draw is
+made once for the whole padded batch and split (``ShardDraws``), so the
+shards' results, gathered once onto the first device and ranked there, are
+the single-device results.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from ..draws import Draws
 from ..models.convert import (is_dual_state_dict, load_reference_checkpoint,
                               pointnet_cls_from_state_dict)
 from ..ops.crop import collect_candidate_clouds
+from ..parallel import mesh as pmesh
 
 
 def _round_up(n: int, m: int) -> int:
@@ -86,22 +97,27 @@ def score_cloud_batch(model, clouds, valid, draws, *, num_points: int = 500,
 
 
 @torch.no_grad()
-def score_candidates_fused(model, pc, cand_frames, valid_in, hand_depth,
-                           width, draws, *, num_points: int = 500,
-                           repeat: int = 1, min_points: int = 50,
-                           crop_recenter: bool = False):
-    """The whole per-frame scoring pipeline: crop + resample + forward +
-    vote + rank. Returns (pred, prob, counts, valid, good, order), where
-    ``order`` ranks candidates by best-class probability, descending, with
-    invalid or not-good candidates last."""
+def crop_and_score(model, pc, cand_frames, valid_in, hand_depth, width,
+                   draws, *, num_points: int = 500, repeat: int = 1,
+                   min_points: int = 50, crop_recenter: bool = False,
+                   batch: int | None = None):
+    """Crop + resample + forward + vote: (pred, prob, counts, valid).
+    ``batch``: the whole batch's candidate count, for a shard."""
     clouds, counts, valid = collect_candidate_clouds(
         cand_frames[:, 0], cand_frames[:, 1], cand_frames[:, 2],
         cand_frames[:, 3], pc, hand_depth, width, draws,
         num_out=num_points, min_point_limit=min_points,
-        recenter=crop_recenter)
+        recenter=crop_recenter, batch=batch)
     valid = valid & valid_in
     pred, prob, _ = score_cloud_batch(model, clouds, valid, draws,
                                       num_points=num_points, repeat=repeat)
+    return pred, prob, counts, valid
+
+
+def rank_candidates(pred, prob, counts, valid):
+    """-> (pred, prob, counts, valid, good, order), where ``order`` ranks
+    candidates by best-class probability, descending, with invalid or
+    not-good candidates last."""
     best_class = prob.shape[-1] - 1
     score = prob[:, best_class]
     good = (pred == best_class) & valid
@@ -109,12 +125,26 @@ def score_candidates_fused(model, pc, cand_frames, valid_in, hand_depth,
     return pred, prob, counts, valid, good, order
 
 
+@torch.no_grad()
+def score_candidates_fused(model, pc, cand_frames, valid_in, hand_depth,
+                           width, draws, *, num_points: int = 500,
+                           repeat: int = 1, min_points: int = 50,
+                           crop_recenter: bool = False):
+    """The whole per-frame scoring pipeline: crop + resample + forward +
+    vote + rank. Returns (pred, prob, counts, valid, good, order)."""
+    return rank_candidates(*crop_and_score(
+        model, pc, cand_frames, valid_in, hand_depth, width, draws,
+        num_points=num_points, repeat=repeat, min_points=min_points,
+        crop_recenter=crop_recenter))
+
+
 @dataclass
 class GraspScorer:
     """Loaded model + padding policy. Candidate counts vary per frame; the
     candidate axis is padded to a multiple of ``pad_to`` as in the JAX
     package, whose results depend on it (the crop strategy switches on the
-    padded count)."""
+    padded count). With a ``mesh`` the scorer's device is the mesh's first
+    device."""
 
     model: Any
     k: int = 3
@@ -124,12 +154,38 @@ class GraspScorer:
     min_points: int = 50
     crop_recenter: bool = False
     device: Any = "cuda"
+    mesh: Any = None
     _best_class: int = field(init=False)
 
     def __post_init__(self):
+        if self.mesh is not None:
+            n = self.mesh.size
+            # candidate padding must tile evenly over the mesh
+            self.pad_to = max(self.pad_to, n) if self.pad_to % n == 0 \
+                else self.pad_to * n
+            self.device = self.mesh.first
         self.device = torch.device(self.device)
         self.model = self.model.to(self.device).eval()
+        self._models = (pmesh.replicate(self.model, self.mesh)
+                        if self.mesh is not None else None)
         self._best_class = self.k - 1
+
+    def _sharded(self, fn, draws, *batched, shared=()):
+        """``fn(model, *shard's rows of batched, *shared, draws)`` on every
+        shard of the mesh, in threads; the draws split per shard. Returns
+        each shard's output."""
+        mesh = self.mesh
+        rv = pmesh.Rendezvous(mesh.size)
+        chunks = [pmesh.shard_batch(t, mesh) for t in batched]
+        on_dev = [pmesh.replicate(t, mesh) for t in shared]
+
+        def shard(s, model, shard_draws):
+            return fn(model, *(c[s] for c in chunks),
+                      *(t[s] for t in on_dev), shard_draws)
+
+        return pmesh.run_shards(mesh, shard, self._models,
+                                pmesh.thread_draws(draws, mesh, rv),
+                                rendezvous=rv)
 
     @classmethod
     def from_checkpoint(cls, path, ref_paths=(), device="cuda", dual=None,
@@ -157,7 +213,7 @@ class GraspScorer:
                            repeat=self.repeat, pad_to=self.pad_to,
                            min_points=self.min_points,
                            crop_recenter=self.crop_recenter,
-                           device=self.device)
+                           device=self.device, mesh=self.mesh)
 
     def score_clouds(self, clouds, valid=None, seed: int = 0, draws=None):
         """(G, P, C) cropped candidate clouds in the gripper frame (C = 3,
@@ -178,9 +234,15 @@ class GraspScorer:
         valid_p[:g] = True if valid is None else torch.as_tensor(
             np.asarray(valid, bool) if not isinstance(valid, torch.Tensor)
             else valid).to(dev)
-        pred, prob, votes = score_cloud_batch(
-            self.model, clouds_p, valid_p, draws or Draws(seed, dev),
-            num_points=self.num_points, repeat=self.repeat)
+        draws = draws or Draws(seed, dev)
+        kw = dict(num_points=self.num_points, repeat=self.repeat)
+        if self.mesh is None:
+            pred, prob, votes = score_cloud_batch(self.model, clouds_p,
+                                                  valid_p, draws, **kw)
+        else:
+            pred, prob, votes = pmesh.gather(self._sharded(
+                lambda m, c, v, d: score_cloud_batch(m, c, v, d, **kw),
+                draws, clouds_p, valid_p), dev)
         # one device -> host copy: every output is exact in float64
         k = prob.shape[1]
         host = torch.cat([pred[:g, None].double(), prob[:g].double(),
@@ -238,11 +300,18 @@ class GraspScorer:
             pc_d = pc.to(dev, torch.float32)
         else:
             pc_d = torch.from_numpy(np.asarray(pc, np.float32)).to(dev)
-        out = score_candidates_fused(
-            self.model, pc_d, cand_p, valid_in, float(hand_depth),
-            float(width), draws or Draws(seed, dev),
-            num_points=self.num_points, repeat=self.repeat,
-            min_points=self.min_points, crop_recenter=self.crop_recenter)
+        draws = draws or Draws(seed, dev)
+        kw = dict(num_points=self.num_points, repeat=self.repeat,
+                  min_points=self.min_points, crop_recenter=self.crop_recenter)
+        hd, w = float(hand_depth), float(width)
+        if self.mesh is None:
+            out = score_candidates_fused(self.model, pc_d, cand_p, valid_in,
+                                         hd, w, draws, **kw)
+        else:
+            out = rank_candidates(*pmesh.gather(self._sharded(
+                lambda m, c, v, p, d: crop_and_score(
+                    m, p, c, v, hd, w, d, batch=g_pad, **kw),
+                draws, cand_p, valid_in, shared=(pc_d,)), dev))
         return PendingScore(out=out, extra_fetch=extra_fetch, g=g)
 
     def collect(self, pending: PendingScore):

@@ -20,12 +20,18 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.dist import active_group, all_reduce_sum, world_size
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 
 def linear(layer, x):
-    """1x1 Conv1d or Linear on channels-last x: (..., Cin) -> (..., Cout)."""
+    """1x1 Conv1d or Linear on channels-last x: (..., Cin) -> (..., Cout).
+    A layer of another kind (``parallel.tp``'s column shards) applies
+    itself."""
+    if not isinstance(layer, (nn.Conv1d, nn.Linear)):
+        return layer(x)
     w = layer.weight
     if w.dim() == 3:           # Conv1d (O, I, 1)
         w = w[:, :, 0]
@@ -57,8 +63,19 @@ def batchnorm_train(bn: nn.BatchNorm1d, x):
     running statistics in place. Returns x's dtype."""
     axes = tuple(range(x.dim() - 1))
     xf = x if x.dtype in (torch.float32, torch.float64) else x.float()
-    var, mean = torch.var_mean(xf, dim=axes, correction=0)
     n = x.numel() // x.shape[-1]
+    group = active_group()
+    n *= world_size(group)           # every rank holds an equal batch
+    # the mean's sums in float64: a float32 sum loses digits where
+    # |mean| >> std, and the train step's gradients are that sensitive
+    # (ROADMAP Queue C item 2); one arithmetic for one process and for a
+    # group of any size, so that a group's step is the 1-process step
+    mean = (all_reduce_sum(xf.sum(dim=axes, dtype=torch.float64), group)
+            / n).to(xf.dtype)
+    # two passes, not sum and sum of squares; the variance's gradient
+    # through the mean is sum(x - mean) = 0: detached here
+    var = all_reduce_sum(torch.square(xf - mean.detach()).sum(dim=axes),
+                         group) / n
     update_running_stats(bn, mean.detach(), var.detach(), n)
     # centered first: a form y = a x + k would differentiate through
     # sum(g x) - mean sum(g), which cancels where |mean| >> std

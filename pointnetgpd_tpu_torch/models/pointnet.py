@@ -12,7 +12,7 @@ Train mode runs the reference composition (linear -> BatchNorm on the batch
 statistics -> ReLU, max over points), with the conv3 -> BN -> max stages
 through ``fused_maxpool.matmul_bn_max`` when ``fused_maxpool``; it never
 runs K2. Eval mode runs every trunk of K2's shape (C <= 8 -> 64 -> 128 ->
-1024) through ``ops.pointnet_trunk.fused_trunk`` (the hand-written CUDA
+1024, or 512 for a tensor-parallel shard's) through ``ops.pointnet_trunk.fused_trunk`` (the hand-written CUDA
 kernel on the card, its plain version on the CPU): the STN3d trunk as
 ``relu(max(.))`` (ReLU and max commute), the PointNetfeat and Dual trunks on
 the transformed points. Each such trunk folds its BatchNorm into the weights
@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.pointnet_trunk import fold_trunk_params, fused_trunk
+from ..ops.pointnet_trunk import K2_WIDTHS, fold_trunk_params, fused_trunk
 from .fused_maxpool import linear_bn_max
 from .layers import linear, linear_bn_relu
 
@@ -77,10 +77,10 @@ class _Trunk(nn.Module):
     def _on_k2(self) -> bool:
         return (self.conv1.in_channels <= 8 and self.conv2.in_channels == 64
                 and self.conv3.in_channels == 128
-                and self.conv3.out_channels == 1024)
+                and self.conv3.out_channels in K2_WIDTHS)
 
     def k2_max(self, x):
-        """The eval-mode trunk through K2: x (B, N, C) -> (B, 1024) in x's
+        """The eval-mode trunk through K2: x (B, N, C) -> (B, C3) in x's
         dtype. K2 computes in float32, so a bf16 ``x`` goes in as float32
         (exact) and the result comes back rounded to bf16."""
         if x.dtype == torch.float32:
@@ -89,7 +89,12 @@ class _Trunk(nn.Module):
 
     def trunk_max(self, x, *, fused_maxpool: bool = False):
         """max over points of bn3(conv3(relu(bn2(conv2(relu(bn1(conv1 x)))))))
-        (no ReLU after layer 3): (B, N, C) -> (B, C3)."""
+        (no ReLU after layer 3): (B, N, C) -> (B, C3). A trunk whose
+        conv3 / bn3 ``parallel.tp`` split over mp devices hands itself to
+        those shards."""
+        shards = self._modules.get("tp_shards")
+        if shards is not None:
+            return shards(self, x, fused_maxpool=fused_maxpool)
         if not self.training and self._on_k2():
             return self.k2_max(x)
         h = linear_bn_relu(self.conv1, self.bn1, x, train=self.training)

@@ -206,13 +206,36 @@ def estimate_normals_knn(points, camera_pos, *, k: int = 30,
     return normals if points.dim() == 3 else normals[0]
 
 
+def _window_chunk_normals(ps, queries, starts, *, k, window, chunk_group):
+    """Plane normals of the (C, Q, 3) query chunks, chunk c searching the
+    ``window`` sorted points of ``ps`` from ``starts[c]``: (C * Q, 3)."""
+    q_chunk = queries.shape[1]
+    win = torch.arange(window, device=ps.device)
+    out = []
+    for c0 in range(0, queries.shape[0], chunk_group):
+        st = starts[c0:c0 + chunk_group]
+        cand = ps[st[:, None] + win]                        # (C, W, 3)
+        _, nbr = min_k(pairwise_d2(queries[c0:c0 + chunk_group], cand), k)
+        nbr_pts = torch.gather(
+            cand[:, None].expand(-1, q_chunk, -1, -1), 2,
+            nbr[..., None].expand(-1, -1, -1, 3))           # (C, Q, k, 3)
+        out.append(_plane_normals(nbr_pts).reshape(-1, 3))
+    return torch.cat(out)
+
+
 def estimate_normals_knn_window(points, camera_pos, *, k: int = 30,
                                 window: int = 2048, q_chunk: int = 256,
-                                bbox=None, chunk_group: int = 16):
+                                bbox=None, chunk_group: int = 16, mesh=None):
     """Morton-window KNN normals: each chunk of ``q_chunk`` consecutive
     Morton-sorted points searches only a ``window`` of surrounding sorted
     points (O(P * window)). ``bbox``: the real cloud's box when ``points``
-    carries far sentinel padding."""
+    carries far sentinel padding. ``mesh`` (a ``parallel.mesh.Mesh``; JAX
+    ``:209-299``): the query chunks are split over its shards, each with the
+    sorted cloud on its device, and gathered once. As in the JAX package,
+    the sorted cloud is padded to a multiple of ``q_chunk`` times the shard
+    count and the window starts are clipped to the padded length, so the
+    tail chunks' windows move with the shard count: equal to JAX at the
+    same mesh size, not to the unsharded normals there."""
     p_total = points.shape[0]
     if p_total <= max(window, q_chunk) or p_total <= k:
         return estimate_normals_knn(points, camera_pos, k=k)
@@ -220,7 +243,8 @@ def estimate_normals_knn_window(points, camera_pos, *, k: int = 30,
     order = torch.argsort(morton_codes(points, bits=10, bbox=bbox),
                           stable=True)
     ps = points[order]
-    pad = (-p_total) % q_chunk
+    ndev = 1 if mesh is None else mesh.size
+    pad = (-p_total) % (q_chunk * ndev)
     p_pad = p_total + pad
     if pad:
         ps = torch.cat([ps, torch.full((pad, 3), 1e9, dtype=points.dtype,
@@ -230,17 +254,17 @@ def estimate_normals_knn_window(points, camera_pos, *, k: int = 30,
         torch.arange(n_chunks, device=dev) * q_chunk + q_chunk // 2
         - window // 2, 0, p_pad - window)
     queries = ps.reshape(n_chunks, q_chunk, 3)
-    win = torch.arange(window, device=dev)
-    out = []
-    for c0 in range(0, n_chunks, chunk_group):
-        st = starts[c0:c0 + chunk_group]
-        cand = ps[st[:, None] + win]                        # (C, W, 3)
-        _, nbr = min_k(pairwise_d2(queries[c0:c0 + chunk_group], cand), k)
-        nbr_pts = torch.gather(
-            cand[:, None].expand(-1, q_chunk, -1, -1), 2,
-            nbr[..., None].expand(-1, -1, -1, 3))           # (C, Q, k, 3)
-        out.append(_plane_normals(nbr_pts).reshape(-1, 3))
-    normals_sorted = torch.cat(out)[:p_total]
+    kw = dict(k=k, window=window, chunk_group=chunk_group)
+    if mesh is None:
+        normals_sorted = _window_chunk_normals(ps, queries, starts, **kw)
+    else:
+        from ..parallel import mesh as pmesh
+
+        normals_sorted = pmesh.gather(pmesh.run_shards(
+            mesh, lambda s, p, q, st: _window_chunk_normals(p, q, st, **kw),
+            pmesh.replicate(ps, mesh), pmesh.shard_batch(queries, mesh),
+            pmesh.shard_batch(starts, mesh)), dev)
+    normals_sorted = normals_sorted[:p_total]
     normals = torch.zeros_like(points)
     normals[order] = normals_sorted
     cam = torch.as_tensor(camera_pos, dtype=points.dtype, device=dev)

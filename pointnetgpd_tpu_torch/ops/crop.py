@@ -97,16 +97,19 @@ def _crop_batch_prefix(pc, centers, rot_rows, box_lo, box_hi, num_out, draws):
     return _to_frames(pcs[idx], centers, rot_rows), count
 
 
-def _crop_batch(pc, centers, rot_rows, box_lo, box_hi, num_out: int, draws):
+def _crop_batch(pc, centers, rot_rows, box_lo, box_hi, num_out: int, draws,
+                batch: int | None = None):
     """Crop + resample for all grasps. pc (P, 3) shared scene cloud, or
     (G, P, 3) one cloud per grasp (the per-sample crops of the GPD
     baseline, each the JAX package's G = 1 call, so never the prefix
     branch); centers (G, 3); rot_rows (G, 3, 3) rows [approach, binormal,
-    minor]; box_lo / box_hi (G, 3). Returns (points (G, num_out, 3) in
-    grasp frames, counts (G,))."""
+    minor]; box_lo / box_hi (G, 3). ``batch``: the grasp count that picks
+    the strategy (default G; a shard of a mesh passes the whole batch's).
+    Returns (points (G, num_out, 3) in grasp frames, counts (G,))."""
     g, p_total = centers.shape[0], pc.shape[-2]
     shared = pc.dim() == 2
-    if shared and g >= _PREFIX_MIN_G and p_total > _DIRECT_TOPK_MAX:
+    if shared and (g if batch is None else batch) >= _PREFIX_MIN_G \
+            and p_total > _DIRECT_TOPK_MAX:
         return _crop_batch_prefix(pc, centers, rot_rows, box_lo, box_hi,
                                   num_out, draws)
     slot_real = None
@@ -186,13 +189,14 @@ def _recenter_depth(pc, bottom_centers, rot_rows, hd, w):
 def collect_candidate_clouds(bottom_centers, approaches, binormals,
                              minor_normals, pc, hand_depth, width, draws, *,
                              num_out: int = 500, min_point_limit: int = 10,
-                             recenter: bool = False):
+                             recenter: bool = False, batch: int | None = None):
     """Online-path crop == batched kinect2grasp.py collect_pc: box x in
     (0, hand_depth), y in +-width/2, z in +-width/4 from the hand bottom
     center. ``recenter=True``: estimate the grasp-center depth as the mean x
     of the in-box points and crop the TRAINING box (x, z in +-width/4, y in
-    +-width/2) around it. Returns (points (G, num_out, 3), counts (G,),
-    valid (G,))."""
+    +-width/2) around it. ``batch``: the candidate count that picks the
+    selection strategy (default G; see ``_crop_batch``). Returns (points
+    (G, num_out, 3), counts (G,), valid (G,))."""
     g = bottom_centers.shape[0]
     dev = pc.device
     if pc.shape[0] == 0:
@@ -214,7 +218,7 @@ def collect_candidate_clouds(bottom_centers, approaches, binormals,
                               -w / 4.0]).expand(g, 3)
         box_hi = torch.stack([hd, w / 2.0, w / 4.0]).expand(g, 3)
     points, counts = _crop_batch(pc, centers, rot_rows, box_lo, box_hi,
-                                 num_out, draws)
+                                 num_out, draws, batch)
     valid = counts >= min_point_limit
     points = torch.where(valid[:, None, None], points, 0.0)
     return points, counts, valid

@@ -6,7 +6,10 @@ layers 1 and 2, none after layer 3, then the max over the point axis
 (reference PointNetGPD/model/pointnet.py:144-149).
 
 In the port this carries every eval-mode trunk of this shape: the scorer's
-forward and the trainer's eval pass. The STN3d trunk (whose ReLU after layer
+forward and the trainer's eval pass; and, at 512 output channels
+(``K2_WIDTHS``), each shard of a trunk whose conv3 rows are split over two
+devices (``parallel/tp.py``): the max over points is per channel, so a
+shard's trunk is the kernel on its rows. The STN3d trunk (whose ReLU after layer
 3 commutes with the max) and the PointNetfeat trunk both go through
 ``fused_trunk``, which launches ``csrc/pointnet_trunk.cu`` for CUDA tensors
 (or raises) and takes ``trunk_reference`` for CPU tensors. The kernel has no
@@ -29,6 +32,8 @@ import torch
 from .. import _build
 
 launches = 0             # kernel launches (CUDA path only)
+# the kernel's output widths (template instances of csrc/pointnet_trunk.cu)
+K2_WIDTHS = (512, 1024)
 
 # layer 3's K axis within each group of 8 input channels, as the kernel's A
 # fragments hold them (csrc/pointnet_trunk.cu): column j takes channel
@@ -128,7 +133,7 @@ def fold_trunk_params(module):
 
 
 def trunk_reference(x, folded):
-    """Plain version. x (B, N, C) -> (B, 1024)."""
+    """Plain version. x (B, N, C) -> (B, H3), any width H3."""
     w1, b1, w2, b2, w3, b3 = folded
     h = torch.relu(x @ w1 + b1)
     h = torch.relu(h @ w2 + b2)
@@ -152,8 +157,8 @@ def trunk_3xtf32(x, folded):
 
 def fused_trunk(x, folded):
     """x (B, N, C) post-STN points, folded from ``fold_trunk_params`` (a
-    ``FoldedTrunk``) -> (B, 1024) global features. CUDA tensors launch the
-    kernel. Raises where autograd would differentiate the result: the
+    ``FoldedTrunk``) -> (B, H3) global features, H3 in ``K2_WIDTHS``. CUDA
+    tensors launch the kernel. Raises where autograd would differentiate the result: the
     kernel has no backward, and its output would come back silently
     detached."""
     if torch.is_grad_enabled() and (
@@ -177,11 +182,15 @@ def _launch(x, folded):
                         "fold_trunk_params, which carries its split weights")
     bsz, n, c = x.shape
     w1, b1, w2b, w2s, b2, w3b, w3s, b3 = folded.tensor_core
-    w2_shape, w3_shape = (1, 16, 16, 8, 4), (16, 8, 32, 8, 4)
+    h3 = b3.shape[0]
+    if h3 not in K2_WIDTHS:
+        raise ValueError(f"the kernel's output widths are {K2_WIDTHS}, got "
+                         f"{h3}")
+    w2_shape, w3_shape = (1, 16, 16, 8, 4), (h3 // W3_ROWS, 8, 32, 8, 4)
     want = {"w1": (w1, (c, 64)), "b1": (b1, (64,)),
             "w2 big": (w2b, w2_shape), "w2 small": (w2s, w2_shape),
             "b2": (b2, (128,)), "w3 big": (w3b, w3_shape),
-            "w3 small": (w3s, w3_shape), "b3": (b3, (1024,))}
+            "w3 small": (w3s, w3_shape), "b3": (b3, (h3,))}
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape or t.dtype != torch.float32 \
                 or t.device != x.device or not t.is_contiguous():
@@ -190,7 +199,7 @@ def _launch(x, folded):
                              f"{t.device}")
     if not 1 <= c <= 8:
         raise ValueError(f"the kernel takes 1..8 input channels, got {c}")
-    out = torch.empty((bsz, 1024), dtype=torch.float32, device=x.device)
+    out = torch.empty((bsz, h3), dtype=torch.float32, device=x.device)
     if bsz == 0:
         return out
     if n == 0:
@@ -200,7 +209,7 @@ def _launch(x, folded):
     err = lib.pointnet_trunk_launch(
         x.data_ptr(), bsz, n, c, w1.data_ptr(), b1.data_ptr(),
         w2b.data_ptr(), w2s.data_ptr(), b2.data_ptr(), w3b.data_ptr(),
-        w3s.data_ptr(), b3.data_ptr(), out.data_ptr(),
+        w3s.data_ptr(), b3.data_ptr(), out.data_ptr(), h3,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "pointnet_trunk_launch")
     launches += 1

@@ -99,7 +99,15 @@ class DetectorConfig:
 
 
 class GraspDetector:
-    """Scene cloud -> ranked good grasps. Runs on the scorer's device."""
+    """Scene cloud -> ranked good grasps. Runs on the scorer's device.
+
+    With a scorer built on a mesh (``GraspScorer(mesh=...)``, JAX
+    ``:160-178``) the whole frame composes over it: the window normals split
+    their query chunks, the GPG sampler its frames and the scorer its
+    candidates, each against the cloud on every shard's device (no
+    collectives); results equal the single-device frame up to the window
+    normals' mesh-dependent tail (``ops/cloud.py``). A GPD scorer has no
+    mesh."""
 
     def __init__(self, scorer: GraspScorer, gripper: Gripper = Gripper(),
                  config: DetectorConfig | None = None):
@@ -107,6 +115,7 @@ class GraspDetector:
         self.gripper = gripper
         self.cfg = config or DetectorConfig()
         self.device = scorer.device
+        self.mesh = getattr(scorer, "mesh", None)
         self.scorer.num_points = self.cfg.input_points_num
         self.scorer.repeat = self.cfg.repeat
         self.scorer.min_points = self.cfg.minimal_points_send_to_point_net
@@ -201,7 +210,7 @@ class GraspDetector:
             elif cfg.normal_window and pts_dev.shape[0] > cfg.normal_window:
                 normals = estimate_normals_knn_window(
                     pts_dev, cam, k=cfg.normal_k, window=cfg.normal_window,
-                    bbox=(lo, hi))
+                    bbox=(lo, hi), mesh=self.mesh)
             else:
                 normals = estimate_normals_knn(pts_dev, cam, k=cfg.normal_k)
 
@@ -212,7 +221,8 @@ class GraspDetector:
                 min_points_above_table=cfg.select_point_above_table,
                 camera_pos=cam, bbox=(lo, hi), normal_k=cfg.normal_k,
                 normal_window=cfg.normal_window, seed_bias=cfg.seed_bias,
-                debug=funnel, draws=draws or Draws(seed, dev))
+                debug=funnel, draws=draws or Draws(seed, dev),
+                mesh=self.mesh)
         if funnel:
             cand, funnel_dev = cand
         # compact valid candidates on the device (stable: original order)

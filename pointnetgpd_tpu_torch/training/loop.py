@@ -4,9 +4,22 @@ Port of ``pointnetgpd_tpu/training/loop.py`` (reference
 PointNetGPD/main_1v.py:59-183): per-epoch train + eval with
 train_loss/train_acc/test_acc/test_loss scalars (tensorboardX when
 installed, always a metrics.jsonl), periodic checkpoints, resume. It runs on
-one device, ``TrainConfig.device`` (the card unless the caller asks for the
-CPU); data parallelism waits for the port's ``parallel`` package. Random
-draws come from one ``draws.Draws`` on that device, seeded from the config.
+``TrainConfig.device`` (the card unless the caller asks for the CPU).
+Random draws come from one ``draws.Draws`` on that device, seeded from the
+config.
+
+Data parallel (``TrainConfig.n_devices`` > 1, JAX ``loop.py:93-153``): one
+process per rank in an initialized ``torch.distributed`` group of that size
+(``cli/train.py`` starts them). Every rank reads the same seeded global
+batch and keeps its rows, so the batch must divide by the world size; every
+rank builds the same model and the same ``Draws`` and takes its rows of the
+whole batch's draws (``parallel.dist.group_draws``: the crop's shuffle is
+one permutation for the global batch). The steps take their statistics,
+loss and metrics over the group and sum the gradients before Adam
+(``training/train.py``); the eval pass runs K2 on each rank's rows and sums
+over the group. Only rank 0 writes checkpoints and logs; ``maybe_resume``
+loads on every rank. On an unnamed ``"cuda"`` device rank r takes card
+r (modulo the cards present).
 """
 
 from __future__ import annotations
@@ -21,6 +34,7 @@ import torch
 from torch.autograd.profiler import record_function
 
 from ..draws import Draws
+from ..parallel import dist as pdist
 from ..models.gpd import GPDClassifier
 from ..models.pointnet import PointNetCls
 from ..ops.crop import collect_grasp_clouds_batched
@@ -86,6 +100,17 @@ class TrainConfig:
     log_dir: str = "./assets/log"
     seed: int = 0
     device: str = "cuda"
+    n_devices: int = 1              # ranks of the process group
+
+
+class _NullLogger:
+    """The logger of ranks other than 0."""
+
+    def scalar(self, name, value, step):
+        pass
+
+    def close(self):
+        pass
 
 
 class Trainer:
@@ -93,8 +118,26 @@ class Trainer:
         self.cfg = cfg
         self.train_data = train_data
         self.eval_data = eval_data
-        self.device = torch.device(cfg.device)
-        self.logger = MetricsLogger(cfg.log_dir, cfg.tag)
+        self.group, self.rank, self.world = None, 0, 1
+        if cfg.n_devices > 1:
+            import torch.distributed as dist
+
+            if not dist.is_initialized() or \
+                    dist.get_world_size() != cfg.n_devices:
+                raise RuntimeError(
+                    f"n_devices={cfg.n_devices} needs an initialized process "
+                    "group of that size (cli/train.py --n-devices starts one)")
+            self.group = dist.group.WORLD
+            self.rank, self.world = dist.get_rank(), cfg.n_devices
+        if cfg.batch_size % self.world:
+            raise ValueError(f"batch {cfg.batch_size} does not divide over "
+                             f"{self.world} ranks")
+        dev = torch.device(cfg.device)
+        if dev.type == "cuda" and dev.index is None and self.world > 1:
+            dev = torch.device("cuda", self.rank % torch.cuda.device_count())
+        self.device = dev
+        self.logger = (MetricsLogger(cfg.log_dir, cfg.tag) if self.rank == 0
+                       else _NullLogger())
         self.tx = make_optimizer(cfg.lr, cfg.lr_step, cfg.lr_gamma,
                                  steps_per_epoch=cfg.steps_per_epoch)
         kw = dict(num_points=cfg.grasp_points_num,
@@ -107,15 +150,26 @@ class Trainer:
                                  k=cfg.num_classes))
         if cfg.gpd:
             self.train_step = make_gpd_train_step(
-                project_chann=cfg.project_chann, **kw)
+                project_chann=cfg.project_chann, group=self.group, **kw)
             self.eval_step = make_gpd_eval_step(
-                project_chann=cfg.project_chann, **kw)
+                project_chann=cfg.project_chann, group=self.group, **kw)
         else:
-            self.train_step = make_fused_train_step(**kw)
-            self.eval_step = make_eval_step()
+            self.train_step = make_fused_train_step(group=self.group, **kw)
+            self.eval_step = make_eval_step(self.group)
         self.state = init_train_state(model.to(self.device), self.tx)
-        self.draws = Draws(cfg.seed + 1, self.device)
+        self.draws = self._draws(Draws(cfg.seed + 1, self.device))
         self._epoch0 = 0
+
+    def _draws(self, base):
+        """This rank's rows of ``base``'s draws for the global batch."""
+        if self.group is None:
+            return base
+        return pdist.group_draws(base, self.group, self.device)
+
+    def _rows(self, a):
+        """This rank's rows of a global-batch array."""
+        b = a.shape[0] // self.world
+        return a[self.rank * b:(self.rank + 1) * b]
 
     # ------------------------------------------------------------------
     def maybe_resume(self):
@@ -127,7 +181,8 @@ class Trainer:
 
     def _to_device(self, batch):
         grasps, clouds, transforms, labels, weights = (
-            torch.as_tensor(np.asarray(a)).to(self.device, non_blocking=True)
+            torch.as_tensor(self._rows(np.asarray(a))).to(
+                self.device, non_blocking=True)
             for a in batch)
         return grasps, clouds, transforms, labels.long(), weights.float()
 
@@ -140,7 +195,7 @@ class Trainer:
             batch = self._to_device(next(it))
             self.state, metrics = self.train_step(self.state, *batch,
                                                   self.draws)
-            if step % cfg.log_interval == 0:
+            if step % cfg.log_interval == 0 and self.rank == 0:
                 loss = float(metrics["loss"])
                 self.logger.scalar("train_loss", loss,
                                    epoch * cfg.steps_per_epoch + step)
@@ -153,11 +208,12 @@ class Trainer:
 
     def evaluate(self, draws=None):
         """Mean accuracy and loss over ``eval_steps`` batches, each cropped
-        on the device and scored in eval mode (K2 on the card)."""
+        on the device and scored in eval mode (K2 on the card), over the
+        group's whole batch. ``draws``: a source for the global batch."""
         if self.eval_data is None:
             return None, None
         cfg = self.cfg
-        draws = draws or self.draws
+        draws = self.draws if draws is None else self._draws(draws)
         it = iter(self.eval_data)
         tot = {"loss_sum": 0.0, "correct": 0.0, "count": 0.0}
         for _ in range(cfg.eval_steps):
@@ -186,6 +242,8 @@ class Trainer:
             train_acc, train_loss = self.train_epoch(epoch)
             self.logger.scalar("train_acc", train_acc, epoch)
             eval_acc, eval_loss = self.evaluate()
+            if self.rank != 0:
+                continue
             if eval_acc is not None:
                 self.logger.scalar("test_acc", eval_acc, epoch)
                 self.logger.scalar("test_loss", eval_loss, epoch)

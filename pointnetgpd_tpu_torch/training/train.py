@@ -4,7 +4,15 @@ Port of ``pointnetgpd_tpu/training/train.py`` (reference
 PointNetGPD/main_1v.py:59-110): NLL loss on the model's log_softmax outputs,
 Adam(lr) with the reference's intended StepLR (halved every 30 epochs, with
 persistent moments), invalid samples masked by a per-sample weight instead
-of dropped. One card; data parallelism waits for the port's ``parallel``.
+of dropped.
+
+Data parallelism (``group``, a ``torch.distributed`` process group; JAX
+``train.py:10-13``, ``:74-78``): each rank holds its rows of the global
+batch. BatchNorm's statistics are the global batch's
+(``parallel.dist.batch_group``), the loss divides by the global weight sum,
+so the global loss is the sum of the ranks' losses, and the ranks'
+gradients are summed before the Adam step. Accuracy, ``valid_frac`` and the
+eval sums are global. With no group a step is the one-device step.
 
 - ``make_fused_train_step``: the closing-region crop
   (``collect_grasp_clouds_batched``), forward, backward and the Adam step in
@@ -35,6 +43,7 @@ from torch.autograd.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..inference.gpd_scorer import gpd_features
+from ..parallel.dist import all_reduce_, batch_group, world_size
 from ..ops.crop import (collect_grasp_clouds_batched,
                         collect_grasp_clouds_percloud)
 
@@ -86,18 +95,45 @@ def init_train_state(model, tx: AdamStepLR) -> TrainState:
     return TrainState(model, opt, sched, 0)
 
 
-def masked_nll_loss(log_probs, labels, weights):
-    """F.nll_loss over valid samples only (weights in {0, 1})."""
+def _weight_sum(weights, group=None):
+    """max(sum of the weights over the group's whole batch, 1)."""
+    return torch.clamp(all_reduce_(weights.sum(), group), min=1.0)
+
+
+def masked_nll_loss(log_probs, labels, weights, group=None):
+    """F.nll_loss over valid samples only (weights in {0, 1}). Over a
+    group, this rank's share of the global loss: its samples' sum over the
+    global weight sum, so the ranks' losses and gradients add up to the
+    global ones."""
     per_sample = -torch.gather(log_probs, 1, labels[:, None].long())[:, 0]
-    return (per_sample * weights).sum() / torch.clamp(weights.sum(), min=1.0)
+    return (per_sample * weights).sum() / _weight_sum(weights, group)
 
 
-def _metrics(loss, logp, labels, weights):
+def _metrics(loss, logp, labels, weights, group=None):
     pred = logp.argmax(dim=-1)
-    acc = ((pred == labels) * weights).sum() / torch.clamp(weights.sum(),
-                                                           min=1.0)
-    return {"loss": loss.detach(), "acc": acc.detach(),
-            "valid_frac": weights.mean()}
+    correct = ((pred == labels) * weights).sum().detach()
+    sums = all_reduce_(torch.stack([loss.detach().float(), correct.float(),
+                                    weights.sum().float()]), group)
+    return {"loss": sums[0], "acc": sums[1] / torch.clamp(sums[2], min=1.0),
+            "valid_frac": sums[2] / (weights.shape[0] * world_size(group))}
+
+
+@torch.no_grad()
+def sum_gradients(model, group):
+    """Sum every parameter's gradient over the group, in one flat
+    all-reduce."""
+    if group is None:
+        return
+    params = [p for p in model.parameters() if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1).float() for p in params])
+    all_reduce_(flat, group)
+    off = 0
+    for p in params:
+        p.grad.copy_(flat[off:off + p.numel()].view_as(p.grad))
+        off += p.numel()
 
 
 @contextlib.contextmanager
@@ -133,9 +169,10 @@ def _forward(model, x, *, compute_dtype=None, remat=False,
     return logp.float()
 
 
-def _backward(state: TrainState, loss):
+def _backward(state: TrainState, loss, group=None):
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    sum_gradients(state.model, group)
 
 
 def _adam(state: TrainState):
@@ -161,35 +198,38 @@ def make_train_step():
     return train_step
 
 
-def make_eval_step():
+def make_eval_step(group=None):
     """Masked eval on pre-cropped clouds: (model, clouds, labels, weights)
-    -> {"loss_sum", "correct", "count"}, under ``no_grad`` (K2 on the
-    card)."""
+    -> {"loss_sum", "correct", "count"} (over the group's whole batch),
+    under ``no_grad`` (K2 on the card, on each rank's rows)."""
 
     @torch.no_grad()
     def eval_step(model, clouds, labels, weights):
         model.eval()
         with record_function("eval.forward"):
             logp = model(clouds)[0]
-        return _eval_sums(logp, labels, weights)
+        return _eval_sums(logp, labels, weights, group)
 
     return eval_step
 
 
-def _eval_sums(logp, labels, weights):
-    loss = masked_nll_loss(logp.float(), labels, weights)
+def _eval_sums(logp, labels, weights, group=None):
+    per_sample = -torch.gather(logp.float(), 1, labels[:, None].long())[:, 0]
     correct = ((logp.argmax(dim=-1) == labels) * weights).sum()
-    return {"loss_sum": loss * torch.clamp(weights.sum(), min=1.0),
-            "correct": correct, "count": weights.sum()}
+    sums = all_reduce_(torch.stack([(per_sample * weights).sum(),
+                                    correct.float(), weights.sum().float()]),
+                       group)
+    return {"loss_sum": sums[0], "correct": sums[1], "count": sums[2]}
 
 
 def make_fused_train_step(*, num_points: int, min_point_limit: int = 50,
                           compute_dtype=None, remat: bool = False,
-                          fused_maxpool: bool = False):
+                          fused_maxpool: bool = False, group=None):
     """The fused train step: (state, grasps (B, >=8), clouds (B, P, 3),
     transforms (B, 4, 4), labels (B,), label_weights (B,), draws) ->
     (state, metrics). ``label_weights`` masks samples the host rejected
-    (skip-band scores); the crop's validity is ANDed in."""
+    (skip-band scores); the crop's validity is ANDed in. Over a ``group``
+    the arrays are this rank's rows and ``draws`` its ``ShardDraws``."""
 
     def train_step(state: TrainState, grasps, clouds, transforms, labels,
                    label_weights, draws):
@@ -199,14 +239,14 @@ def make_fused_train_step(*, num_points: int, min_point_limit: int = 50,
                 min_point_limit=min_point_limit)
             weights = label_weights * crop_valid.to(label_weights.dtype)
         state.model.train()
-        with record_function("train.fwd_bwd"):
+        with record_function("train.fwd_bwd"), batch_group(group):
             logp = _forward(state.model, cropped,
                             compute_dtype=compute_dtype, remat=remat,
                             fused_maxpool=fused_maxpool)
-            loss = masked_nll_loss(logp, labels, weights)
-            _backward(state, loss)
+            loss = masked_nll_loss(logp, labels, weights, group)
+            _backward(state, loss, group)
         _adam(state)
-        return state, _metrics(loss, logp, labels, weights)
+        return state, _metrics(loss, logp, labels, weights, group)
 
     return train_step
 
@@ -228,7 +268,8 @@ def make_gpd_feature_fn(*, num_points: int, project_chann: int = 3,
 
 
 def make_gpd_eval_step(*, num_points: int, project_chann: int = 3,
-                       min_point_limit: int = 50, knn_k: int = 30):
+                       min_point_limit: int = 50, knn_k: int = 30,
+                       group=None):
     """Masked eval of the GPD baseline: (model, grasps, clouds, transforms,
     labels, label_weights, draws) -> {"loss_sum", "correct", "count"}."""
     features = make_gpd_feature_fn(num_points=num_points,
@@ -245,13 +286,14 @@ def make_gpd_eval_step(*, num_points: int, project_chann: int = 3,
         model.eval()
         with record_function("eval.forward"):
             logp = model(feats)
-        return _eval_sums(logp, labels, weights)
+        return _eval_sums(logp, labels, weights, group)
 
     return eval_step
 
 
 def make_gpd_train_step(*, num_points: int, project_chann: int = 3,
-                        min_point_limit: int = 50, knn_k: int = 30):
+                        min_point_limit: int = 50, knn_k: int = 30,
+                        group=None):
     """Train step of the GPD projection-CNN baseline (reference
     main_1v_gpd.py: GPDClassifier on 60x60 projections, Adam + StepLR,
     persistent optimizer). As in the JAX package, normals are estimated
@@ -272,9 +314,9 @@ def make_gpd_train_step(*, num_points: int, project_chann: int = 3,
         state.model.train()
         with record_function("train.fwd_bwd"):
             logp = state.model(feats, draws)
-            loss = masked_nll_loss(logp, labels, weights)
-            _backward(state, loss)
+            loss = masked_nll_loss(logp, labels, weights, group)
+            _backward(state, loss, group)
         _adam(state)
-        return state, _metrics(loss, logp, labels, weights)
+        return state, _metrics(loss, logp, labels, weights, group)
 
     return train_step

@@ -458,6 +458,60 @@ def test_k2_kernel_input_channels_on_card(cuda_device, c):
                                atol=ATOL, rtol=ATOL)
 
 
+def _row_shards(folded, mp=2):
+    """The mp tensor-parallel shards of a folded trunk: layer 3's output
+    rows split, as ``parallel/tp.py`` splits conv3."""
+    w1, b1, w2, b2, w3, b3 = folded
+    w = w3.shape[1] // mp
+    return [k2.FoldedTrunk([w1, b1, w2, b2,
+                            w3[:, j * w:(j + 1) * w].contiguous(),
+                            b3[j * w:(j + 1) * w].contiguous()])
+            for j in range(mp)]
+
+
+def test_k2_512_row_shards_are_the_full_trunks_halves():
+    """A shard of 512 rows is K2's 512-row instance: its operands are the
+    kernel's layout at 8 chunks of w3, and its plain and 3xTF32 results are
+    the full trunk's columns exactly; widths the kernel lacks are refused
+    before any launch."""
+    rng = np.random.RandomState(4)
+    params, state = _jax_feat(4, rng)
+    folded = k2.fold_trunk_params(_port_feat(params, state))
+    x = torch.from_numpy(rng.randn(6, 40, 3).astype(np.float32))
+    full_ref = k2.trunk_reference(x, folded)
+    full_tc = k2.trunk_3xtf32(x, folded)
+    for j, sh in enumerate(_row_shards(folded)):
+        assert tuple(sh.tensor_core[5].shape) == (8, 8, 32, 8, 4)
+        cols = slice(512 * j, 512 * (j + 1))
+        assert torch.equal(k2.trunk_reference(x, sh), full_ref[:, cols])
+        assert torch.equal(k2.trunk_3xtf32(x, sh), full_tc[:, cols])
+    w1, b1, w2, b2, w3, b3 = folded
+    narrow = k2.FoldedTrunk([w1, b1, w2, b2, w3[:, :256].contiguous(),
+                             b3[:256].contiguous()])
+    with pytest.raises(ValueError):
+        k2._launch(x, narrow)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n", [(64, 500), (128, 750), (5, 37)])
+def test_k2_512_row_instance_matches_plain_on_card(cuda_device, b, n):
+    """K2's 512-row instance (a tensor-parallel shard's trunk) against its
+    plain version within 1e-4 x (1 + |ref|), one launch per shard."""
+    rng = np.random.RandomState(5)
+    params, state = _jax_feat(3, rng)
+    feat = _port_feat(params, state).to(cuda_device)
+    x = torch.from_numpy(rng.randn(b, n, 3).astype(np.float32)).to(
+        cuda_device)
+    with torch.no_grad():
+        for sh in _row_shards(k2.fold_trunk_params(feat)):
+            n0 = k2.launches
+            got = k2.fused_trunk(x, sh)
+            assert k2.launches == n0 + 1 and got.shape == (b, 512)
+            want = k2.trunk_reference(x, sh)
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       atol=ATOL, rtol=ATOL)
+
+
 # --------------------------------------------------------------------- K3
 
 @pytest.mark.cuda
