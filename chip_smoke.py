@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port's paths on one GPU: the online
 grasp-detection frame and its entry points, the mesh -> SDF voxelizer
-(object preparation), the trainer, dataset labeling and the RGB-D -> cloud
-path.
+(object preparation), the trainer, dataset labeling, the RGB-D -> cloud
+path, data and tensor parallelism, and the object database with its users.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -174,6 +174,29 @@ Phases, in order; any failure exits non-zero:
       differs. An eval pass of the model before the step, its sums
       against the 1-process eval and its K2 launches (2 per rank); ms per
       float32 step of each.
+13. the device work of the object database's path (``database_phases``),
+   at the reference's settings on phase 7's torus written as OBJ (sdf_dim
+   100, padding 5, a fresh mesh cache), each step's time and the host's
+   share against K3's:
+   a. ``MeshProcessor.generate_graspable``, which ``DexNet.add_object``
+      runs: K3 once, counted around it alone; its SDF equal bit for bit to
+      K3's ``mesh_to_sdf`` of the processed mesh (a launch counted apart)
+      and within 0.02 res of the analytic torus;
+   b. ``label_grasps_for_object`` at 5 grasps per class, whose rows
+      ``compute_simulation_data`` stores: equal bit for bit run to run, the
+      device's busy time from a profiled rerun;
+   c. ``UrdfWriter.write`` on an L shape with no pieces given: K3 once, the
+      URDF and piece files equal to the plain K3 route's;
+   d. ``compare_normals``' normals on the object's SDF: the SDF plane-fit
+      normals held to the CPU route as phase 9 holds the labeling path, the
+      KNN normals up to sign within 1 - |cos| <= 1e-4.
+   The card's machine has neither h5py nor matplotlib, so the database's
+   file (``DexNet``, the scripted ``DexNetCli`` session,
+   ``generate_gqcnn_dataset``) and the figures are held on the CPU by
+   tests/test_torch_api.py and tests/test_torch_database.py, against the
+   JAX package; the phase prints whether they are installed. K3's launches
+   at its sites go into ``launches_by_path`` of its entry in the kernels
+   line (a and phase 7's cube under ``mesh_processor``, c under ``urdf``).
 
 Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
 slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
@@ -525,6 +548,18 @@ def read_counts():
     return {name: mod.launches for name, mod in _kernel_modules().items()}
 
 
+def with_plain_k3(fn):
+    """fn() with K3 swapped for its plain version (on any device)."""
+    from pointnetgpd_tpu_torch.ops import point_triangle as k3
+
+    launch3 = k3._launch
+    k3._launch = k3.min_point_triangle_dist2_torch
+    try:
+        return fn()
+    finally:
+        k3._launch = launch3
+
+
 def torus_mesh(nu, nv, big_r, small_r):
     """Watertight, non-convex torus of 2 * nu * nv triangles, outward
     winding, vertices on the analytic surface."""
@@ -673,13 +708,6 @@ def voxelizer_phases(torch, card):
     launch3, parity = k3._launch, vox._inside_parity
     plain3 = k3.min_point_triangle_dist2_torch
 
-    def with_plain_k3(fn):
-        k3._launch = plain3
-        try:
-            return fn()
-        finally:
-            k3._launch = launch3
-
     with tempfile.TemporaryDirectory() as tmp:
         # a. the entry point at the reference's settings
         v, f = torus_mesh(*TORUS)
@@ -772,17 +800,22 @@ def voxelizer_phases(torch, card):
         lv = Mesh3D(*box_mesh([0, 0, 0], [2, 1, 1])).merge(
             Mesh3D(*box_mesh([0, 0, 1], [1, 1, 2])))
         zero_counts()
+        t0 = time.perf_counter()
         pieces = approximate_convex_decomposition(lv)
+        acd_s = time.perf_counter() - t0
         n_acd = read_counts()["point_triangle"]
+        t0 = time.perf_counter()
         plain_pieces = with_plain_k3(
             lambda: approximate_convex_decomposition(lv))
+        plain_acd_s = time.perf_counter() - t0
         same = len(pieces) == len(plain_pieces) and all(
             a.vertices.shape == b.vertices.shape
             and np.allclose(a.vertices, b.vertices, atol=1e-6)
             for a, b in zip(pieces, plain_pieces))
         print(f"approximate_convex_decomposition(L): {len(pieces)} pieces, "
-              f"K3 launches {n_acd}, same as the plain route {same}",
-              flush=True)
+              f"K3 launches {n_acd}, same as the plain route {same}; "
+              f"{acd_s:.3f} s, the plain route's {plain_acd_s:.3f} s (host "
+              f"clock) ({card})", flush=True)
         if n_acd != 1 or not same or len(pieces) < 2:
             fail("convex decomposition: K3 not launched once, or pieces "
                  "differ from the plain route")
@@ -914,7 +947,11 @@ def voxelizer_phases(torch, card):
     return {"name": "point_triangle", "route": "cuda",
             "source": "pointnetgpd_tpu_torch/csrc/point_triangle.cu",
             "replaces": "pointnetgpd_tpu/ops/point_triangle_pallas.py:225",
-            "launches": launches["point_triangle"], "max_abs_err": k3_err,
+            "launches": launches["point_triangle"],
+            "launches_by_path": {"voxelizer": launches["point_triangle"],
+                                 "decomposition": n_acd,
+                                 "mesh_processor": n_mp},
+            "max_abs_err": k3_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": None}
 
@@ -2979,6 +3016,263 @@ def mesh_phases(torch, card, dev="cuda", ckpt=None, k2_1024_ms=None,
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 13: the object database and its users
+
+
+def icosphere_mesh(radius, subdivisions=2):
+    """The octahedral sphere of tests/test_api.py (8 * 4^s triangles), for a
+    small CPU rehearsal of phase 13."""
+    from pointnetgpd_tpu_torch.geometry.mesh import Mesh3D
+
+    v = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                  [0, 0, 1], [0, 0, -1]], float)
+    f = np.array([[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4],
+                  [2, 0, 5], [1, 2, 5], [3, 1, 5], [0, 3, 5]], np.int32)
+    m = Mesh3D(v, f)
+    for _ in range(subdivisions):
+        m = m.subdivide()
+    return (radius * m.vertices / np.linalg.norm(m.vertices, axis=1,
+                                                 keepdims=True), m.triangles)
+
+
+def database_phases(torch, card, dev="cuda", solid=("torus", TORUS),
+                    sdf_dim=100, per_class=5):
+    """Phase 13: the device work of the object database's path on ``dev``
+    (see the module docstring). ``solid``: ("torus", (nu, nv, R, r)) or
+    ("sphere", radius); sizes are parameters, so that the phase rehearses
+    on the CPU at a small size. The database's own steps need h5py and its
+    figures matplotlib; they are held on the CPU by the tests, and the
+    phase says whether this machine has them. Returns K3's launches by path
+    and the steps' times."""
+    import importlib.util
+    import tempfile
+
+    from pointnetgpd_tpu_torch.api import DEFAULT_CONFIG
+    from pointnetgpd_tpu_torch.database.mesh_processor import MeshProcessor
+    from pointnetgpd_tpu_torch.draws import Draws
+    from pointnetgpd_tpu_torch.geometry.io import read_sdf, write_obj
+    from pointnetgpd_tpu_torch.geometry.mesh import Mesh3D
+    from pointnetgpd_tpu_torch.geometry.sdf import surface_normal
+    from pointnetgpd_tpu_torch.geometry.urdf_writer import UrdfWriter
+    from pointnetgpd_tpu_torch.cli import tools
+    from pointnetgpd_tpu_torch.grasping.gripper import Gripper
+    from pointnetgpd_tpu_torch.ops import mesh_to_sdf as vox
+    from pointnetgpd_tpu_torch.ops import point_triangle as k3
+    from pointnetgpd_tpu_torch.pipelines.generate_dataset import (
+        label_grasps_for_object)
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    if on_card:                  # built before any launch is timed
+        from pointnetgpd_tpu_torch import _build
+
+        _build.library()
+    t_phase = time.perf_counter()
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("h5py", "matplotlib")}
+    print(f"13: installed here {found}; the database's file (DexNet, the "
+          f"scripted DexNetCli session, generate_gqcnn_dataset) and the "
+          f"figures are held on the CPU by tests/test_torch_api.py and "
+          f"tests/test_torch_database.py; this phase runs the path's device "
+          f"work: generate_graspable (add_object's K3 launch), the labeling "
+          f"loop that compute_simulation_data stores, UrdfWriter.write and "
+          f"compare_normals' normals", flush=True)
+    out = {"by_path": {}, "times": {}}
+    problems = []
+    launch3 = k3._launch
+    events = []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def timed3(points, tri_data, sup_data, stats=None):
+        if not on_card:
+            return launch3(points, tri_data, sup_data, stats)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        d2 = launch3(points, tri_data, sup_data, stats)
+        end.record()
+        events.append((start, end))
+        return d2
+
+    def k3_ms():
+        sync()
+        ms = sum(s.elapsed_time(e) for s, e in events)
+        events.clear()
+        return ms
+
+    def counted(fn):
+        """fn() with K3 timed; (result, K3 launches, wall s, K3 ms)."""
+        events.clear()
+        zero_counts()
+        k3._launch = timed3
+        try:
+            sync()
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            wall = time.perf_counter() - t0
+        finally:
+            k3._launch = launch3
+        n = read_counts()
+        if n["gpg_counts"] or n["pointnet_trunk"]:
+            problems.append(f"K1 or K2 launched on the database path: {n}")
+        return res, n["point_triangle"], wall, k3_ms()
+
+    def host_line(name, wall, kms, n):
+        print(f"13{name}: {wall * 1e3:.2f} ms wall (host clock), K3 "
+              f"{kms:.4f} ms over {n} launch(es) (CUDA events), host share "
+              f"{100 * (1 - kms / (wall * 1e3)):.2f}% ({card})", flush=True)
+        out["times"][name] = {"wall_ms": wall * 1e3, "k3_ms": kms}
+
+    kind, size = solid
+    if kind == "torus":
+        v, f = torus_mesh(*size)
+    else:
+        v, f = icosphere_mesh(size)
+    config = {**DEFAULT_CONFIG, "grasps_per_class": per_class,
+              "sdf_dim": sdf_dim}
+    want_k3 = 1 if on_card else 0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = os.path.join(tmp, f"{kind}.obj")
+        write_obj(obj, v, f)
+        cache = os.path.join(tmp, "cache")
+
+        # a. the object's SDF through K3 at the reference's settings
+        proc = MeshProcessor(obj, cache_dir=cache, device=dev)
+        (mesh, sdf, _), n_add, wall, kms = counted(
+            lambda: proc.generate_graspable(config))
+        host_line("a MeshProcessor.generate_graspable", wall, kms, n_add)
+        key = proc.key
+        out["by_path"]["mesh_processor"] = n_add
+        print(f"13a generate_graspable({kind}, {len(f):,} triangles, sdf_dim "
+              f"{sdf_dim}, padding {config['sdf_padding']}): K3 launches "
+              f"{n_add}, sdf {sdf.dims} on {sdf.data.device}", flush=True)
+        if n_add != want_k3:
+            fail(f"13a: generate_graspable launched K3 {n_add} times, not "
+                 f"{want_k3}")
+        # its SDF is K3's mesh_to_sdf of the processed mesh (a launch
+        # counted apart)
+        direct = vox.mesh_to_sdf(mesh, dim=sdf_dim,
+                                 padding=config["sdf_padding"], device=dev)
+        same = (torch.equal(direct.data, sdf.data)
+                and torch.equal(direct.origin, sdf.origin)
+                and float(direct.resolution) == float(sdf.resolution))
+        res = float(sdf.resolution)
+        data = sdf.data.cpu().numpy()
+        line = (f"13a SDF equal bit for bit to a direct mesh_to_sdf of the "
+                f"processed mesh: {same}")
+        if kind == "torus":
+            err = float(np.abs(data - torus_sdf(grid_world(sdf),
+                                                *size[2:])).max())
+            line += (f"; max |sdf - analytic torus| {err:.3e} m = "
+                     f"{err / res:.4f} res (limit 0.02 res)")
+            if err > 0.02 * res:
+                problems.append("13a: the SDF is off the analytic torus")
+        print(line, flush=True)
+        if not same:
+            problems.append("13a: the SDF differs from mesh_to_sdf")
+
+        # b. the labeling loop that compute_simulation_data stores
+        gripper = Gripper()
+        com = mesh.center_of_mass()
+        first, _, wall, _ = counted(lambda: label_grasps_for_object(
+            sdf, com, gripper, Draws(0, dev), grasps_per_class=per_class))
+        rows, counts = first.rows, first.counts
+        out["times"]["label_s"] = wall
+        again = label_grasps_for_object(sdf, com, gripper, Draws(0, dev),
+                                        grasps_per_class=per_class)
+        same = (np.array_equal(rows, again.rows)
+                and np.array_equal(counts, again.counts))
+        busy = None
+        if on_card:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                label_grasps_for_object(sdf, com, gripper, Draws(0, dev),
+                                        grasps_per_class=per_class)
+                sync()
+            busy = device_busy(torch, prof)[0] / 1e3
+        share = ("not measured" if busy is None else
+                 f"{100 * (1 - busy / (wall * 1e3)):.2f}%")
+        print(f"13b label_grasps_for_object({per_class} per class): "
+              f"{wall:.3f} s wall, {len(rows)} rows, per class "
+              f"{counts.tolist()}; equal bit for bit under the same draws "
+              f"run to run: {same}; device busy "
+              f"{'not measured' if busy is None else f'{busy:.2f} ms'} (a "
+              f"profiled rerun), host share {share} of the wall ({card})",
+              flush=True)
+        out["times"]["label_device_busy_ms"] = busy
+        if (not same or rows.shape[1] != 12 or rows.dtype != np.float32
+                or not np.isfinite(rows).all() or len(rows) == 0):
+            problems.append("13b: the labeled rows are malformed or differ "
+                            "run to run")
+
+        # c. the URDF writer: its decomposition voxelizes through K3
+        lv = Mesh3D(*box_mesh([0, 0, 0], [2, 1, 1])).merge(
+            Mesh3D(*box_mesh([0, 0, 1], [1, 1, 2])))
+        path, n_urdf, wall, kms = counted(lambda: UrdfWriter(
+            os.path.join(tmp, "urdf"), device=dev).write(lv, name="l"))
+        host_line("c UrdfWriter.write", wall, kms, n_urdf)
+        out["by_path"]["urdf"] = n_urdf
+        with_plain_k3(lambda: UrdfWriter(os.path.join(tmp, "urdf_plain"),
+                                         device=dev).write(lv, name="l"))
+        names = sorted(os.listdir(os.path.join(tmp, "urdf")))
+        same = names == sorted(os.listdir(os.path.join(tmp, "urdf_plain")))
+        for n in names if same else ():
+            with open(os.path.join(tmp, "urdf", n), "rb") as a, \
+                    open(os.path.join(tmp, "urdf_plain", n), "rb") as b:
+                same = same and a.read() == b.read()
+        n_pieces = sum(n.endswith(".obj") for n in names)
+        print(f"13c UrdfWriter.write(L shape, no pieces given): {n_pieces} "
+              f"pieces, K3 launches {n_urdf}, URDF and piece files equal to "
+              f"the plain K3 route's {same}", flush=True)
+        if (n_urdf != want_k3 or not same or n_pieces < 2
+                or os.path.basename(path) not in names):
+            fail(f"13c: UrdfWriter launched K3 {n_urdf} times or its files "
+                 f"differ from the plain route's")
+
+        # d. compare_normals' device part on the object's SDF (the mesh
+        # cache's .sdf)
+        sdf_path = os.path.join(cache, f"{key}.sdf")
+        t0 = time.perf_counter()
+        idx, pts, n_dev, v_dev, knn_dev = tools.sdf_and_knn_normals(
+            sdf_path, n_points=300, seed=0, device=dev)
+        wall = time.perf_counter() - t0
+        _, pts_c, n_cpu, v_cpu, knn_cpu = tools.sdf_and_knn_normals(
+            sdf_path, n_points=300, seed=0, device="cpu")
+        cpu_sdf = read_sdf(sdf_path, device="cpu")
+        grid = cpu_sdf.surface_points[torch.as_tensor(idx)]
+        got = {"normals": n_dev, "valid": v_dev}
+        want = {"normals": n_cpu, "valid": v_cpu}
+        unstable = np.zeros(len(idx), bool)
+        for s in nudged_sdfs(cpu_sdf, "cpu"):
+            nn, vv = surface_normal(s, grid)
+            unstable |= lane_diff({"normals": nn.numpy(),
+                                   "valid": vv.numpy()}, want, ("valid",))
+        hold_routes(problems, "13d SDF plane-fit normals", got, want,
+                    unstable, ("valid",))
+        cos = np.abs(np.sum(knn_dev * knn_cpu, axis=1))
+        agree = np.abs(np.sum(n_dev * knn_dev, axis=1))
+        print(f"13d compare_normals({len(idx)} surface points): points "
+              f"equal {np.array_equal(pts, pts_c)}, KNN normals up to sign "
+              f"min |cos| card vs CPU {cos.min():.7f} (limit 1 - 1e-4), SDF "
+              f"vs KNN |cos| mean {agree.mean():.3f}, {wall * 1e3:.1f} ms "
+              f"({card})", flush=True)
+        if not np.array_equal(pts, pts_c) or cos.min() < 1 - 1e-4:
+            problems.append("13d: the KNN normals differ card vs CPU")
+
+    if problems:
+        fail("phase 13: " + "; ".join(problems))
+    print(f"13 done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -3294,6 +3588,11 @@ def main():
     # 12. data and tensor parallelism on the one card
     par = mesh_phases(torch, card, ckpt=ckpt,
                       k2_1024_ms=round(timing["k2_64x500"], 4))
+    # 13. the object database and its users
+    db = database_phases(torch, card)
+    for site, n in db["by_path"].items():
+        k3_entry["launches_by_path"][site] = (
+            k3_entry["launches_by_path"].get(site, 0) + n)
     mesh_frame = par["by_path"]["mesh_frame"]
     ros = entry["10d run_ros_node pipeline=False"]
     print(f"kernel launches by path: frame {launches['gpg_counts']} K1 and "
@@ -3311,7 +3610,8 @@ def main():
           f"{mesh_frame['gpg_counts']} K1 and {mesh_frame['pointnet_trunk']} "
           f"K2 (1 frame, 2 shards), the TP eval forward "
           f"{par['by_path']['tp_eval']} K2<512> (2 shards), the DDP eval "
-          f"pass {par['by_path']['ddp_eval']} K2 (2 ranks)", flush=True)
+          f"pass {par['by_path']['ddp_eval']} K2 (2 ranks); K3 "
+          f"{k3_entry['launches_by_path']}", flush=True)
     print(f"labeling summary ({card}): {label['gps3']:.1f} labeled grasps/s "
           f"(3-D), {label['gps6']:.1f} (6-D); one torus object "
           f"{label['9b']['cold_s']:.2f} s cold, {label['9b']['warm_s']:.2f} s "

@@ -80,8 +80,15 @@ class _Cluster:
             self.concavity = max(0.0, 1.0 - self.vox_volume / self.hull_volume)
 
     def _corner_points(self) -> np.ndarray:
-        corners = (self.cells[:, None, :] + _CORNERS[None]).reshape(-1, 3)
-        return np.unique(corners, axis=0) * self.res
+        # the corners are half-integers: one int64 key per corner, unique'd
+        # in 1-D, gives exactly np.unique(corners, axis=0) (rows in
+        # lexicographic order) at a fraction of its sort's cost
+        c = (self.cells[:, None, :] + _CORNERS[None] + 0.5).reshape(-1, 3)
+        c = c.astype(np.int64)
+        m = int(c.max()) + 1
+        key = np.unique((c[:, 0] * m + c[:, 1]) * m + c[:, 2])
+        rows = np.stack([key // (m * m), key // m % m, key % m], axis=1)
+        return (rows - 0.5) * self.res
 
     # candidate split-plane normals: the 3 axes plus the 6 in-plane
     # diagonals (vhacd searches a continuous normal space; this 9-direction

@@ -428,7 +428,7 @@ class Mesh3D:
             v = (d00 * dw1 - d01 * dw0) / denom
             return u >= -1e-12 and v >= -1e-12 and u + v <= 1 + 1e-12
 
-        def topple_target(fi):
+        def _topple(fi):
             n = normals[fi]
             ref_pt = self.vertices[faces[fi][0]]
             proj = com - np.dot(com - ref_pt, n) * n
@@ -447,6 +447,16 @@ class Mesh3D:
                     best_e = e
             cand = [f for f in edge_faces.get(best_e, []) if f != fi]
             return cand[0] if cand else fi
+
+        # each face's target once: the drain below revisits the faces of
+        # every path (a 60,000-triangle torus asks 7x as often as it has
+        # hull faces)
+        targets: dict = {}
+
+        def topple_target(fi):
+            if fi not in targets:
+                targets[fi] = _topple(fi)
+            return targets[fi]
 
         # drain probability mass to sinks
         n_faces = len(faces)

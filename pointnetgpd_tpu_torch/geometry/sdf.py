@@ -66,7 +66,7 @@ def make_sdf(data, origin, resolution, device="cuda") -> SdfGrid:
     return SdfGrid(
         data=dev(data),
         origin=dev(np.asarray(origin, np.float32)),
-        resolution=dev(np.float32(resolution)),
+        resolution=torch.tensor(np.float32(resolution), device=device),
         gradients=dev(grads),
         surface_points=dev(surface),
         surface_vals=dev(vals),
