@@ -1,7 +1,9 @@
 """Drive the PyTorch/CUDA port's paths on one GPU: the online
 grasp-detection frame and its entry points, the mesh -> SDF voxelizer
 (object preparation), the trainer, dataset labeling, the RGB-D -> cloud
-path, data and tensor parallelism, and the object database with its users.
+path, data and tensor parallelism, the object database with its users, and
+the last modules (contact surface windows, the normal-approximation study,
+the training-parity experiment, the profiler).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -197,6 +199,40 @@ Phases, in order; any failure exits non-zero:
    JAX package; the phase prints whether they are installed. K3's launches
    at its sites go into ``launches_by_path`` of its entry in the kernels
    line (a and phase 7's cube under ``mesh_processor``, c under ``urdf``).
+14. the last modules (``last_modules_phases``, sizes are parameters):
+   a. contact surface windows on phase 9b's torus SDF (sdf_dim 100) at the
+      ``close_fingers`` contacts of phase 9b's labeled rows, both jaws:
+      ``surface_window_sdf`` and ``surface_window_projection`` (width 1e-2,
+      21 x 21 cells, 32 samples, 7x7 bilateral) over all contacts and
+      ``grasp_surface_information`` (width 2e-2) over 8 grasps, card
+      against the CPU route on the same SDF and contacts: windows,
+      gradients and Hessian rows within 1e-6 x (1 + |ref|), the raw
+      projection depths within 1e-7 m except cells that the CPU route
+      itself moves under a one-ulp change of the SDF (at most 1%); CUDA-event
+      ms of each call;
+   b. ``run_study`` at 84,000 raw points, cloud_pad_to 8192, 500-point
+      crops, over 3 scenes (cut from 50) for its 4 configs, after one
+      warm-up scene: K1 exactly 3 and K2 exactly 2 launches per frame and
+      config (36 and 24); warm ms per frame per config by ``StageTimer``;
+      the summary; the exact-KNN config's peak memory on scene 0; scene 0
+      again under each config with K1 and K2 swapped for their plain
+      versions: predictions and counts equal, frames within 1e-5, scores
+      within 1e-4; ``run_pinned`` on the same 3 scenes (16,384 voxels);
+   c. ``build_parity_dataset`` at its defaults (sdf_dim 56, 12 per class,
+      12 rounds, 6 views x 12,000 points) on ``parity_box`` and
+      ``parity_torus_mesh`` (cut from 10 objects): K3 exactly once, K1 and
+      K2 never, the torus's SDF through K3 against its plain route (K3's
+      tolerance, equal signs), the layout of tests/test_training_parity.py;
+      then ``train_ours`` at full width (batch 64, 750 points, 12,000-point
+      clouds, 3 classes, eval batch 64, the reset quirk) for 3 epochs at
+      its own steps_per_epoch: finite losses, K2 exactly 2 launches per eval
+      batch, the last epoch's eval rerun through K2's plain version on the
+      same state and crops giving the same correct counts; CUDA-event ms
+      per train step, s per epoch;
+   d. ``utils.profiling.device_trace`` around one study frame: one trace
+      file naming CUDA kernels, K1's and K2's among them.
+   The kernels line gains ``launches_by_path`` entries ``study`` (K1, K2),
+   ``parity_eval`` (K2) and ``parity_dataset`` (K3).
 
 Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
 slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
@@ -219,6 +255,7 @@ last line is the contract line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import os
@@ -699,7 +736,7 @@ def voxelizer_phases(torch, card):
     from pointnetgpd_tpu_torch.geometry.io import (read_sdf, write_obj,
                                                    write_sdf)
     from pointnetgpd_tpu_torch.geometry.mesh import Mesh3D
-    from pointnetgpd_tpu_torch.ops import mesh_to_sdf as vox
+    vox = importlib.import_module("pointnetgpd_tpu_torch.ops.mesh_to_sdf")
     from pointnetgpd_tpu_torch.ops import point_triangle as k3
     from pointnetgpd_tpu_torch.pipelines.prepare_objects import (
         prepare_object_dir)
@@ -1865,6 +1902,7 @@ def labeling_phases(torch, card, dev="cuda", attempts=256, torus=TORUS,
         # the first round against the CPU route under shared draws
         t_card = read_sdf(sdf_path, device=dev)
         t_cpu = read_sdf(sdf_path, device="cpu")
+        out["torus_sdf"], out["9b_rows"] = t_cpu, rows    # for phase 14a
         ns = adaptive_num_samples(t_card, gripper.max_width)
         verts, faces = read_obj(os.path.join(obj_dir, "google_512k",
                                              "nontextured.obj"))
@@ -3057,7 +3095,7 @@ def database_phases(torch, card, dev="cuda", solid=("torus", TORUS),
     from pointnetgpd_tpu_torch.geometry.urdf_writer import UrdfWriter
     from pointnetgpd_tpu_torch.cli import tools
     from pointnetgpd_tpu_torch.grasping.gripper import Gripper
-    from pointnetgpd_tpu_torch.ops import mesh_to_sdf as vox
+    vox = importlib.import_module("pointnetgpd_tpu_torch.ops.mesh_to_sdf")
     from pointnetgpd_tpu_torch.ops import point_triangle as k3
     from pointnetgpd_tpu_torch.pipelines.generate_dataset import (
         label_grasps_for_object)
@@ -3270,6 +3308,376 @@ def database_phases(torch, card, dev="cuda", solid=("torus", TORUS),
     if problems:
         fail("phase 13: " + "; ".join(problems))
     print(f"13 done in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 14: the last modules
+
+def rel_err(got, want):
+    """max |got - want| / (1 + |want|) of two arrays or tensors."""
+    got, want = (np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64)
+                 for x in (got, want))
+    return float((np.abs(got - want) / (1 + np.abs(want))).max()) \
+        if want.size else 0.0
+
+
+def window_err(a, b):
+    """rel_err over two SurfaceWindows' windows, gradients, Hessian rows."""
+    return max(rel_err(x, y) for x, y in zip(
+        (a.proj_win, *a.grad, *a.hess_x, *a.hess_y),
+        (b.proj_win, *b.grad, *b.hess_x, *b.hess_y)))
+
+
+def last_modules_phases(torch, card, dev="cuda", torus_sdf=None, rows=None,
+                        study=(3, 84000, 8192, 500),
+                        parity_objects=("parity_box", "parity_torus_mesh"),
+                        parity_kw=None, train_kw=None, epochs=3, n_info=8):
+    """Phase 14 (see the module docstring) on ``dev``: surface windows on
+    ``torus_sdf`` (a CPU SdfGrid) at the contacts of ``rows`` (labeled grasp
+    rows), the normal-approximation study (``study``: scenes, raw points,
+    cloud_pad_to, crop points), the training-parity experiment and a
+    profiler trace of one frame. Sizes are parameters, so that the phase
+    rehearses on the CPU at a small size (launch counts are checked on the
+    card only). Returns the launches by path and the phase's numbers."""
+    import tempfile
+
+    from pointnetgpd_tpu_torch.geometry.sdf import SdfGrid
+    from pointnetgpd_tpu_torch.grasping import surface_window as sw
+    from pointnetgpd_tpu_torch.grasping.grasp import Contacts, close_fingers
+    from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
+    from pointnetgpd_tpu_torch.models.pointnet import PointNetCls
+    from pointnetgpd_tpu_torch.ops import gpg_counts as k1
+    from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
+    from pointnetgpd_tpu_torch.pipelines import normal_approx_study as nas
+    from pointnetgpd_tpu_torch.pipelines import parity
+    from pointnetgpd_tpu_torch.robot.node import GraspDetector
+    from pointnetgpd_tpu_torch.training import train as ttrain
+    from pointnetgpd_tpu_torch.utils.profiling import StageTimer, device_trace
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {"by_path": {}}
+    problems = []
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def event_ms(fn):
+        """(fn(), its CUDA-event ms; host ms off the card)."""
+        if not on_card:
+            t0 = time.perf_counter()
+            return fn(), (time.perf_counter() - t0) * 1e3
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end)
+
+    def counts_ok(name, got, want):
+        print(f"14{name}: launches {got} (want {want} on the card)",
+              flush=True)
+        if on_card and got != want:
+            problems.append(f"{name}: launches {got}, want {want}")
+
+    # a. contact surface windows on the torus at phase 9b's contacts
+    sdf_cpu = torus_sdf
+    sdf_dev = SdfGrid(*(t.to(dev) for t in sdf_cpu))
+    closed = close_fingers(sdf_dev, torch.as_tensor(
+        np.asarray(rows)[:, :10], device=dev))
+    found = closed.found
+    pts = closed.points[found].reshape(-1, 3)
+    dirs = closed.in_directions[found].reshape(-1, 3)
+    n_c = pts.shape[0]
+    pts_c, dirs_c = pts.cpu(), dirs.cpu()
+    zero_counts()
+    win, ms_sdf = event_ms(lambda: sw.surface_window_sdf(sdf_dev, pts, dirs))
+    e_sdf = rel_err(win, sw.surface_window_sdf(sdf_cpu, pts_c, dirs_c))
+    raw_kw = dict(width=1e-2, num_steps=21, max_depth=1e-2, num_samples=32)
+    raw = sw._projection_windows_raw(sdf_dev, pts, dirs, **raw_kw).cpu()
+    raw_c = sw._projection_windows_raw(sdf_cpu, pts_c, dirs_c, **raw_kw)
+    bad = (raw - raw_c).abs() > 1e-7
+    excused = torch.zeros_like(bad)
+    if bad.any():          # cells the CPU route itself moves under an ulp
+        for s in nudged_sdfs(sdf_cpu, "cpu"):
+            excused |= (sw._projection_windows_raw(
+                s, pts_c, dirs_c, **raw_kw) - raw_c).abs() > 1e-7
+    proj, ms_proj = event_ms(lambda: sw.surface_window_projection(
+        sdf_dev, pts, dirs))
+    e_proj = rel_err(proj, sw.surface_window_projection(sdf_cpu, pts_c,
+                                                        dirs_c))
+    sub = Contacts(*(f[found][:n_info] for f in closed))
+    sub_c = Contacts(*(f.cpu() for f in sub))
+    t0 = time.perf_counter()
+    info = sw.grasp_surface_information(sdf_dev, sub)
+    ms_info = (time.perf_counter() - t0) * 1e3
+    info_c = sw.grasp_surface_information(sdf_cpu, sub_c)
+    e_info = max(window_err(a, b) for pa, pb in zip(info, info_c)
+                 for a, b in zip(pa, pb))
+    n = read_counts()
+    print(f"14a surface windows on the torus (sdf_dim "
+          f"{sdf_cpu.dims[0]}) at {n_c} contacts of {len(rows)} labeled "
+          f"rows ({int(found.sum())} closed): surface_window_sdf "
+          f"{ms_sdf:.3f} ms, card vs CPU max rel err {e_sdf:.2e} (1e-6); "
+          f"raw projection windows: {int(bad.sum())} of {bad.numel()} cells "
+          f"off the CPU route by more than 1e-7 m, {int(excused.sum())} "
+          f"cells that the CPU route moves under a one-ulp change (cap 1%); "
+          f"surface_window_projection (21 x 21, 32 samples, 7x7 bilateral) "
+          f"{ms_proj:.3f} ms, max rel err {e_proj:.2e} (1e-6); "
+          f"grasp_surface_information ({len(info)} grasps, width 2e-2) "
+          f"{ms_info:.2f} ms wall, windows, gradients and Hessian rows max "
+          f"rel err {e_info:.2e} (1e-6); launches {n} ({card})", flush=True)
+    if (e_sdf > 1e-6 or e_proj > 1e-6 or e_info > 1e-6
+            or (bad & ~excused).any() or float(excused.float().mean()) > 0.01
+            or n_c == 0 or len(info) != min(n_info, int(found.sum()))
+            or any(n.values())):
+        problems.append("14a: the surface windows differ card vs CPU")
+    out["14a"] = dict(contacts=n_c, sdf_ms=ms_sdf, proj_ms=ms_proj,
+                      info_ms=ms_info)
+
+    # b. the normal-approximation study at full width, 3 scenes
+    n_scenes, raw_points, pad, n_pts = study
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = PointNetCls(input_chann=3, k=3)
+    cam = np.asarray([1.0, 1.0, 1.2], np.float32)
+    t0 = time.perf_counter()
+    nas.run_study(1, raw_points, 1000, pad, n_pts, model=model, device=dev)
+    sync()
+    warm_s = time.perf_counter() - t0
+    timer = StageTimer()
+    zero_counts()
+    t0 = time.perf_counter()
+    rows_s, yields = nas.run_study(n_scenes, raw_points, 0, pad, n_pts,
+                                   model=model, device=dev, timer=timer)
+    sync()
+    study_s = time.perf_counter() - t0
+    n = read_counts()
+    n_frames = n_scenes * len(yields)
+    counts_ok(f"b run_study ({n_scenes} scenes x {len(yields)} configs)",
+              (n["gpg_counts"], n["pointnet_trunk"], n["point_triangle"]),
+              (3 * n_frames, 2 * n_frames, 0))
+    out["by_path"]["study"] = {"gpg_counts": n["gpg_counts"],
+                               "pointnet_trunk": n["pointnet_trunk"]}
+    summary = nas.summarize(rows_s, yields)
+    print(f"14b run_study: {n_scenes} scenes of {raw_points:,} raw points, "
+          f"cloud_pad_to {pad}, {n_pts}-point crops, {study_s:.2f} s (a "
+          f"warm-up scene first: {warm_s:.2f} s); warm ms per frame by "
+          f"StageTimer ({card}):\n{timer.report()}", flush=True)
+    print(f"14b summary: {json.dumps(summary)}", flush=True)
+    scorer = GraspScorer(model=model, k=3, num_points=n_pts, device=dev)
+    dets = {name: GraspDetector(scorer, config=cfg)
+            for name, cfg in nas.study_configs(pad).items()}
+    scene0 = nas.make_scene(np.random.RandomState(0), raw_points)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    ex = dets["exact"].process_frame(scene0, cam, seed=0)
+    sync()
+    peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20 \
+        if on_card else None
+    print(f"14b exact-KNN config (reference_parity) on scene 0: "
+          f"{ex['points'].shape[0]:,} voxels, "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms, peak memory above "
+          f"the frame's start "
+          f"{'not measured' if peak is None else f'{peak:.1f} MiB'} "
+          f"({card})", flush=True)
+    out["14b"] = dict(ms=timer.summary(), summary=summary, exact_peak_mib=peak)
+
+    def plain1(ctx, fx, sc, is_y):
+        return k1.gpg_scan_counts_torch(ctx.points, ctx.seeds, ctx.rot_rows,
+                                        fx, sc, ctx.boxes, scan_is_y=is_y)
+
+    launch1, launch2 = k1.GpgScanContext._launch, k2._launch
+    for name, det in dets.items():
+        got = det.process_frame(scene0, cam, seed=0)
+        k1.GpgScanContext._launch, k2._launch = plain1, k2.trunk_reference
+        try:
+            want = det.process_frame(scene0, cam, seed=0)
+        finally:
+            k1.GpgScanContext._launch, k2._launch = launch1, launch2
+        same = (got["n_valid"] == want["n_valid"]
+                and np.array_equal(got["pred"], want["pred"])
+                and np.array_equal(got["counts"], want["counts"])
+                and len(got["scores"]) == len(want["scores"]))
+        e_f = float(np.abs(got["all_frames"] - want["all_frames"]).max()) \
+            if same and len(want["all_frames"]) else 0.0
+        e_s = float(np.abs(got["all_scores"] - want["all_scores"]).max()) \
+            if same and len(want["all_scores"]) else 0.0
+        print(f"14b scene 0, {name}: n_valid {got['n_valid']} vs "
+              f"{want['n_valid']} on the plain route, predictions and counts "
+              f"equal {same}, max |frame err| {e_f:.2e} (1e-5), max |score "
+              f"err| {e_s:.2e} (1e-4)", flush=True)
+        if not same or e_f > 1e-5 or e_s > 1e-4:
+            problems.append(f"14b {name}: the frame differs from its plain "
+                            f"route")
+    t0 = time.perf_counter()
+    pinned = nas.run_pinned(n_scenes, raw_points, 0, device=dev)
+    print(f"14b run_pinned ({n_scenes} scenes, 16,384 voxels each at most): "
+          f"{json.dumps(pinned)}, {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    out["14b"]["pinned"] = pinned
+    if not (0.5 < pinned["window_cos_median"] <= 1.0
+            and 0.5 < pinned["lazy_cos_median"] <= 1.0):
+        problems.append("14b: pinned normals far off the exact ones")
+
+    # c. the training-parity experiment: its dataset, then train_ours
+    n_mesh = sum(o.endswith("_mesh") for o in parity_objects)
+    root = tempfile.mkdtemp()
+    try:
+        zero_counts()
+        t0 = time.perf_counter()
+        meta = parity.build_parity_dataset(root, objects=list(parity_objects),
+                                           device=dev, **(parity_kw or {}))
+        sync()
+        build_s = time.perf_counter() - t0
+        n = read_counts()
+        counts_ok("c build_parity_dataset",
+                  (n["point_triangle"], n["gpg_counts"], n["pointnet_trunk"]),
+                  (n_mesh, 0, 0))
+        out["by_path"]["parity_dataset"] = n["point_triangle"]
+        kw = dict(dict(sdf_dim=56), **(parity_kw or {}))
+        for name in parity_objects:
+            if not name.endswith("_mesh"):
+                continue
+            build = parity.PARITY_OBJECTS[name][0]
+            got = build(kw["sdf_dim"], None, dev)
+            want = with_plain_k3(lambda: build(kw["sdf_dim"], None, dev))
+            ok, err = close_distances(got.data.abs(), want.data.abs())
+            signs = torch.equal(got.data < 0, want.data < 0)
+            print(f"14c {name}: sdf {got.dims}, K3 vs its plain route max "
+                  f"|err| {err:.3e} (rtol, atol {K3_TOL}), signs equal "
+                  f"{signs}", flush=True)
+            if not (ok and signs):
+                problems.append(f"14c: {name}'s SDF differs from the plain "
+                                f"K3 route")
+        views = meta["points_per_view"]
+        n_views = (parity_kw or {}).get("views_per_object", 6)
+        labels = []
+        for obj in meta["objects"]:
+            tr = np.load(f"{root}/PointNetGPD/data/ycb_grasp/train/{obj}.npy")
+            te = np.load(f"{root}/PointNetGPD/data/ycb_grasp/test/{obj}.npy")
+            clouds = sorted(os.listdir(
+                f"{root}/data/ycb-tools/models/ycb/{obj}/rgbd/clouds"))
+            pc = np.load(f"{root}/data/ycb-tools/models/ycb/{obj}/rgbd/"
+                         f"clouds/{clouds[0]}")
+            if (tr.shape != (meta["n_train"], 12)
+                    or te.shape != (meta["n_test"], 12)
+                    or len(clouds) != n_views or pc.shape != (views, 3)
+                    or pc.dtype != np.float32):
+                problems.append(f"14c: {obj}'s files are malformed")
+            score = tr[:, -2] + 0.01 * tr[:, -1]
+            labels.append(np.where(score >= 1.2, 0,
+                                   np.where(score <= 0.5, 2, 1)))
+        n_classes = len(np.unique(np.concatenate(labels)))
+        print(f"14c build_parity_dataset({list(parity_objects)}, "
+              f"{parity_kw or 'defaults'}): {build_s:.2f} s, n_train "
+              f"{meta['n_train']}, n_test {meta['n_test']} per object, "
+              f"{n_views} views of {views} points, {n_classes} classes in "
+              f"the train rows ({card})", flush=True)
+        if n_classes < 2:
+            problems.append("14c: fewer than 2 classes in the train rows")
+
+        make_step, make_eval = (ttrain.make_fused_train_step,
+                                ttrain.make_eval_step)
+        step_ms, evals = [], []
+
+        def timed_step(*a, **k):
+            step = make_step(*a, **k)
+
+            def run(state, *batch):
+                res, ms = event_ms(lambda: step(state, *batch))
+                step_ms.append(ms)
+                return res
+
+            return run
+
+        def recorded_eval(*a, **k):
+            ev = make_eval(*a, **k)
+
+            def run(model, clouds, labels, weights):
+                res = ev(model, clouds, labels, weights)
+                evals.append((model, clouds, labels, weights,
+                              float(res["correct"])))
+                return res
+
+            return run
+
+        ttrain.make_fused_train_step = timed_step
+        ttrain.make_eval_step = recorded_eval
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            hist = parity.train_ours(root, epochs=epochs, device=dev,
+                                     **(train_kw or {}))
+            sync()
+        finally:
+            ttrain.make_fused_train_step = make_step
+            ttrain.make_eval_step = make_eval
+        train_s = time.perf_counter() - t0
+        n = read_counts()
+        counts_ok("c train_ours eval (K2, 2 per eval batch)",
+                  (n["pointnet_trunk"], n["gpg_counts"], n["point_triangle"]),
+                  (2 * len(evals), 0, 0))
+        out["by_path"]["parity_eval"] = n["pointnet_trunk"]
+        per_epoch = len(evals) // epochs
+        last = evals[-per_epoch:]
+        eval_step = make_eval()
+        k2._launch = k2.trunk_reference
+        try:
+            plain = [float(eval_step(m, c, lab, w)["correct"])
+                     for m, c, lab, w, _ in last]
+        finally:
+            k2._launch = launch2
+        kern = [e[-1] for e in last]
+        print(f"14c train_ours ({epochs} epochs x {len(step_ms) // epochs} "
+              f"steps, {train_kw or 'defaults: batch 64, 750 points, 12,000'
+              '-point clouds, 3 classes, eval batch 64, reset quirk on'}): "
+              f"losses {[round(x, 5) for x in hist['train_loss']]}, test "
+              f"accuracy {hist['test_acc']}; {per_epoch} eval batches per "
+              f"epoch; the last epoch's eval correct counts {kern} through "
+              f"K2, {plain} through its plain version; train step "
+              f"{np.mean(step_ms):.2f} ms mean (CUDA events, first "
+              f"{step_ms[0]:.2f} ms), {train_s / epochs:.2f} s per epoch "
+              f"(host clock) ({card})", flush=True)
+        if (not np.isfinite(hist["train_loss"]).all() or kern != plain
+                or len(hist["test_acc"]) != epochs or per_epoch < 1):
+            problems.append("14c: train_ours' losses or its eval differ")
+        out["14c"] = dict(build_s=build_s, step_ms=float(np.mean(step_ms)),
+                          epoch_s=train_s / epochs, hist=hist)
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
+
+    # d. a profiler trace of one study frame
+    with tempfile.TemporaryDirectory() as tdir:
+        with device_trace(tdir):
+            dets["lazy"].process_frame(scene0, cam, seed=0)
+        files = [f for f in os.listdir(tdir) if f.endswith(".pt.trace.json")]
+        events = []
+        for f in files[:1]:
+            with open(os.path.join(tdir, f)) as fh:
+                events = json.load(fh)["traceEvents"]
+    kernels = {e.get("name", "") for e in events
+               if e.get("cat") == "kernel"}
+    named = {k: any(k in n for n in kernels)
+             for k in ("gpg_counts_kernel", "pointnet_trunk_kernel")}
+    print(f"14d device_trace around one study frame: trace files "
+          f"{files}, {len(events)} events, {len(kernels)} distinct CUDA "
+          f"kernels, K1 and K2 named {named}", flush=True)
+    if len(files) != 1 or (on_card and not (kernels and all(named.values()))):
+        problems.append("14d: the trace names no CUDA kernel or misses K1 "
+                        "or K2")
+
+    if problems:
+        fail("phase 14: " + "; ".join(problems))
+    print(f"14 done in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
 
@@ -3593,6 +4001,13 @@ def main():
     for site, n in db["by_path"].items():
         k3_entry["launches_by_path"][site] = (
             k3_entry["launches_by_path"].get(site, 0) + n)
+    # 14. the last modules: surface windows, the study, the parity
+    # experiment, a profiler trace
+    last = last_modules_phases(torch, card, torus_sdf=label["torus_sdf"],
+                               rows=label["9b_rows"])
+    k3_entry["launches_by_path"]["parity_dataset"] = (
+        last["by_path"]["parity_dataset"])
+    study = last["by_path"]["study"]
     mesh_frame = par["by_path"]["mesh_frame"]
     ros = entry["10d run_ros_node pipeline=False"]
     print(f"kernel launches by path: frame {launches['gpg_counts']} K1 and "
@@ -3610,7 +4025,10 @@ def main():
           f"{mesh_frame['gpg_counts']} K1 and {mesh_frame['pointnet_trunk']} "
           f"K2 (1 frame, 2 shards), the TP eval forward "
           f"{par['by_path']['tp_eval']} K2<512> (2 shards), the DDP eval "
-          f"pass {par['by_path']['ddp_eval']} K2 (2 ranks); K3 "
+          f"pass {par['by_path']['ddp_eval']} K2 (2 ranks); the study "
+          f"{study['gpg_counts']} K1 and {study['pointnet_trunk']} K2 (3 "
+          f"scenes x 4 configs), the parity eval "
+          f"{last['by_path']['parity_eval']} K2; K3 "
           f"{k3_entry['launches_by_path']}", flush=True)
     print(f"labeling summary ({card}): {label['gps3']:.1f} labeled grasps/s "
           f"(3-D), {label['gps6']:.1f} (6-D); one torus object "
@@ -3629,7 +4047,8 @@ def main():
                               "labeling": label["k1_launches"],
                               "warmup": entry["10c warmup"]["gpg_counts"],
                               "ros_node": ros["gpg_counts"],
-                              "mesh_frame": mesh_frame["gpg_counts"]},
+                              "mesh_frame": mesh_frame["gpg_counts"],
+                              "study": study["gpg_counts"]},
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
@@ -3647,7 +4066,9 @@ def main():
              "ros_node": ros["pointnet_trunk"],
              "mesh_frame": mesh_frame["pointnet_trunk"],
              "tp_eval": par["by_path"]["tp_eval"],
-             "ddp_eval": par["by_path"]["ddp_eval"]},
+             "ddp_eval": par["by_path"]["ddp_eval"],
+             "study": study["pointnet_trunk"],
+             "parity_eval": last["by_path"]["parity_eval"]},
          "max_abs_err": k2_err["64x500"], "ms": timing["k2_64x500"],
          "plain_ms": timing["k2_plain_64x500"], "bound_ms": k2_bound,
          "bound_by": "operations",

@@ -19,8 +19,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# geometry.sdf imports ops.fp: the module is taken, its names resolved at
+# call time, so that either package can be imported first
+from ..geometry import sdf as sdf_lib
 from ..geometry.mesh import Mesh3D
-from ..geometry.sdf import SdfGrid, make_sdf
 from . import point_triangle as k3
 from .fp import fma
 
@@ -79,7 +81,7 @@ def _inside_parity(columns_xy, z0, res, tri_v, *, nz: int, chunk: int = 512):
 
 def mesh_to_sdf(mesh: Mesh3D, dim: int = 100, padding: int = 5,
                 jitter: float = 1e-4, max_triangles: int = 60000,
-                device="cuda") -> SdfGrid:
+                device="cuda") -> sdf_lib.SdfGrid:
     """Voxelize a watertight mesh into a (dim^3) SDF grid on ``device`` with
     ``padding`` empty cells on each side (SDFGen's dim/padding semantics,
     read_file_sdf.py:34-41 + test/config.yaml).
@@ -138,4 +140,4 @@ def mesh_to_sdf(mesh: Mesh3D, dim: int = 100, padding: int = 5,
         nz=dim).reshape(dim, dim, dim)
 
     data = torch.where(inside, -dist, dist)
-    return make_sdf(data, origin, res, device=dev)
+    return sdf_lib.make_sdf(data, origin, res, device=dev)

@@ -44,12 +44,12 @@ from pointnetgpd_tpu_torch.geometry.decomposition import (
     approximate_convex_decomposition)
 from pointnetgpd_tpu_torch.geometry.mesh import Mesh3D
 from pointnetgpd_tpu_torch.grasping.graspable_object import GraspableObject3D
-from pointnetgpd_tpu_torch.ops import mesh_to_sdf as tm
 from pointnetgpd_tpu_torch.ops import point_triangle as k3
 from pointnetgpd_tpu_torch.pipelines import prepare_objects as tprep
 
-# ``pointnetgpd_tpu.ops`` re-exports functions under the modules' names
+# both packages' ``ops`` re-export functions under the modules' names
 jm = importlib.import_module("pointnetgpd_tpu.ops.mesh_to_sdf")
+tm = importlib.import_module("pointnetgpd_tpu_torch.ops.mesh_to_sdf")
 jk3 = importlib.import_module("pointnetgpd_tpu.ops.point_triangle_pallas")
 
 RTOL, ATOL = 1e-5, 1e-7          # float32 port vs the JAX CPU path
