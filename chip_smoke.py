@@ -1,9 +1,10 @@
 """Drive the PyTorch/CUDA port's paths on one GPU: the online
 grasp-detection frame and its entry points, the mesh -> SDF voxelizer
 (object preparation), the trainer, dataset labeling, the RGB-D -> cloud
-path, data and tensor parallelism, the object database with its users, and
-the last modules (contact surface windows, the normal-approximation study,
-the training-parity experiment, the profiler).
+path, data and tensor parallelism, the object database with its users, the
+last modules (contact surface windows, the normal-approximation study, the
+training-parity experiment, the profiler) and the drivers of
+``pointnetgpd_tpu_torch/examples/``.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -233,6 +234,34 @@ Phases, in order; any failure exits non-zero:
       file naming CUDA kernels, K1's and K2's among them.
    The kernels line gains ``launches_by_path`` entries ``study`` (K1, K2),
    ``parity_eval`` (K2) and ``parity_dataset`` (K3).
+15. the drivers of ``pointnetgpd_tpu_torch/examples/`` (``examples_phases``,
+   sizes are parameters):
+   a. ``integrated_workflow`` at the 1v variant's widths (batch 64, 750
+      points, sdf_dim 100, the detect stage's 8192 bucket), its depth cut to
+      6 objects, 2 epochs x 5 steps, 4 grasps per class and 150 GPG seeds
+      (printed): its stages in fresh processes, each exiting 0, the detect
+      stage in this one (K1 3 and K2 2 launches per preset); each stage's
+      wall seconds, the eval accuracy against the majority prior, each
+      preset's candidates, funnel and ground truth. The prepare stage's
+      first SDF against ``mesh_to_sdf`` through K3's plain route (phase 7's
+      tolerance) and prepared again here (1 K3 launch, equal bit for bit);
+      the eval stage's test split again here, through K2 (40 launches,
+      each held against ``trunk_reference`` at K2's tolerance) and its
+      plain version, each giving the stage's accuracy; the
+      ``reference_parity`` frame again through both kernels and both plain
+      versions (as phase 5);
+   b. ``gt_robustness`` on a's tree (K1 3 and K2 2 per preset, two arms);
+   c. ``end_to_end_demo`` in this process: K3 1, K1 3 and K2 2 launches,
+      each recorded launch against its plain version;
+   d. ``execute_grasp_registration`` where h5py is installed (else the
+      phase says why it did not run);
+   e. ``train_parity_experiment --skip-reference`` on two objects at 2 per
+      class, 2 rounds and 2 epochs (its widths otherwise): K3 once, K2 in
+      pairs, finite losses.
+   The kernels line gains ``launches_by_path`` entries ``workflow_prepare``
+   (K3, one object counted here), ``workflow_eval`` (K2),
+   ``workflow_detect``, ``gt_robustness`` and ``demo`` (K1, K2; K3 for the
+   demo), and ``registration`` (K3) where it ran.
 
 Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
 slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
@@ -3681,6 +3710,387 @@ def last_modules_phases(torch, card, dev="cuda", torus_sdf=None, rows=None,
     return out
 
 
+WF_SIZES = dict(objects=6, epochs=2, steps=5, per_class=4, seeds=150)
+
+
+def examples_phases(torch, card, dev="cuda", wf=None, demo_steps=30,
+                    wf_extra=(), parity_extra=()):
+    """Phase 15 (see the module docstring) on ``dev``: the drivers of
+    ``pointnetgpd_tpu_torch/examples/``. ``wf``: the workflow's depth
+    (objects, epochs, steps per epoch, grasps per class, GPG seeds);
+    ``wf_extra`` and ``parity_extra``: more driver flags (a CPU rehearsal
+    passes its small sizes there). Launch counts are checked on the card
+    only. Returns the launches by path and the phase's seconds."""
+    import argparse
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from pointnetgpd_tpu_torch.examples import end_to_end_demo as demo
+    from pointnetgpd_tpu_torch.examples import gt_robustness as gtr
+    from pointnetgpd_tpu_torch.examples import integrated_workflow as iwf
+    from pointnetgpd_tpu_torch.examples import train_parity_experiment as tpe
+    from pointnetgpd_tpu_torch.geometry.io import read_sdf
+    from pointnetgpd_tpu_torch.geometry.mesh import Mesh3D
+    from pointnetgpd_tpu_torch.ops import gpg_counts as k1
+    from pointnetgpd_tpu_torch.ops import point_triangle as k3
+    from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
+    from pointnetgpd_tpu_torch.pipelines import prepare_objects as prep
+
+    vox = importlib.import_module("pointnetgpd_tpu_torch.ops.mesh_to_sdf")
+    wf = dict(WF_SIZES, **(wf or {}))
+    dev = torch.device(dev)
+    dev_s = str(dev)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    out = {"by_path": {}}
+    problems = []
+    tmp = tempfile.mkdtemp()
+
+    def passed(flag):
+        """``flag`` and its value where ``wf_extra`` sets them, else []."""
+        ex = list(wf_extra)
+        return ex[ex.index(flag):ex.index(flag) + 2] if flag in ex else []
+
+    def test_acc(text):
+        accs = [float(ln.split("acc=")[1].split(",")[0])
+                for ln in text.splitlines() if "Test done, acc=" in ln]
+        return accs[-1] if accs else None
+
+    def counts_ok(name, got, want):
+        print(f"15{name}: launches {got} (want {want} on the card)",
+              flush=True)
+        if on_card and got != want:
+            problems.append(f"{name}: launches {got}, want {want}")
+
+    def plain1(ctx, fx, sc, is_y):
+        return k1.gpg_scan_counts_torch(ctx.points, ctx.seeds, ctx.rot_rows,
+                                        fx, sc, ctx.boxes, scan_is_y=is_y)
+
+    @contextlib.contextmanager
+    def plain_kernels():
+        saved = (k1.GpgScanContext._launch, k2._launch, k3._launch)
+        k1.GpgScanContext._launch = plain1
+        k2._launch = k2.trunk_reference
+        k3._launch = k3.min_point_triangle_dist2_torch
+        try:
+            yield
+        finally:
+            (k1.GpgScanContext._launch, k2._launch, k3._launch) = saved
+
+    try:
+        # a. the workflow: its stages in fresh processes, the detect stage
+        # in this one
+        root = os.path.join(tmp, "wf")
+        md = os.path.join(tmp, "WORKFLOW.md")
+        argv = ["--root", root, "--objects", str(wf["objects"]), "--epochs",
+                str(wf["epochs"]), "--steps-per-epoch", str(wf["steps"]),
+                "--grasps-per-class", str(wf["per_class"]), "--num-seeds",
+                str(wf["seeds"]), "--out-md", md, "--device", dev_s,
+                *wf_extra]
+        print(f"15a: integrated_workflow {' '.join(argv[2:])} (variant 1v, "
+              f"its widths: batch 64, 750 points, sdf_dim 100 and the "
+              f"8192 bucket unless set above; depth cut from 20 objects, "
+              f"20 epochs x 60 steps, 20 per class, 400 GPG seeds)",
+              flush=True)
+        zero_counts()
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            iwf.main(argv)
+        wf_s = time.perf_counter() - t0
+        detect_counts = read_counts()
+        summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+        times = summary["times_s"]
+        det = summary["detect"]
+        hist = summary["test_hist"]
+        prior = max(hist) / max(sum(hist), 1)
+        print(f"15a: every stage exited 0; {wf_s:.1f} s; stage wall s "
+              f"({card}): {json.dumps(times)}", flush=True)
+        print(f"15a: {summary['total_rows']} labeled rows; eval accuracy "
+              f"{summary['eval_acc']} against the majority prior "
+              f"{prior:.4f} (test labels {hist})", flush=True)
+        for preset in iwf.PRESETS:
+            d = det[preset]
+            print(f"15a: {preset}: candidates {d['candidates']}, n_valid "
+                  f"{d['n_valid']}, classes {d['pred_hist']}, approved "
+                  f"{d['good_grasps']}, funnel {json.dumps(d['funnel'])}, "
+                  f"ground truth {json.dumps(d['ground_truth'])}",
+                  flush=True)
+        n_pre = len(iwf.PRESETS)
+        counts_ok("a workflow_detect", detect_counts,
+                  {"gpg_counts": 3 * n_pre, "pointnet_trunk": 2 * n_pre,
+                   "point_triangle": 0})
+        out["by_path"]["workflow_detect"] = detect_counts
+
+        # K3 at the prepare stage: one object again in this process (a
+        # counted launch, the stage's file bit for bit) and through K3's
+        # plain route (phase 7's tolerance)
+        base = os.path.join(root, "PointNetGPD/data/ycb-tools/models/ycb")
+        name = sorted(os.listdir(base))[0]
+        gdir = os.path.join(base, name, "google_512k")
+        copy = os.path.join(tmp, "prep", name)
+        os.makedirs(os.path.join(copy, "google_512k"))
+        shutil.copy(os.path.join(gdir, "nontextured.ply"),
+                    os.path.join(copy, "google_512k"))
+        sdf_dim = int((passed("--sdf-dim") or [None, 100])[1])
+        zero_counts()
+        prep.prepare_object_dir(copy, sdf_dim=sdf_dim, device=dev)
+        prep_counts = read_counts()
+        stage_sdf = read_sdf(os.path.join(gdir, "nontextured.sdf"),
+                             device=dev)
+        again = read_sdf(os.path.join(copy, "google_512k",
+                                      "nontextured.sdf"), device=dev)
+        mesh = Mesh3D(*prep.read_ply_mesh(os.path.join(
+            gdir, "nontextured.ply"))).remove_bad_tris() \
+            .remove_unreferenced_vertices()
+        plain_sdf = with_plain_k3(lambda: vox.mesh_to_sdf(
+            mesh, dim=sdf_dim, padding=5, device=dev))
+        signs = bool(torch.equal(torch.signbit(stage_sdf.data),
+                                 torch.signbit(plain_sdf.data)))
+        ok, e_sdf = close_distances(stage_sdf.data, plain_sdf.data)
+        same = bool(torch.equal(again.data, stage_sdf.data))
+        print(f"15a: prepare stage's {name} SDF {tuple(stage_sdf.dims)}: "
+              f"against K3's plain route signs equal {signs}, max |err| "
+              f"{e_sdf:.3e} m (rtol 1e-4, atol 1e-7); rerun in this process "
+              f"equal bit for bit {same}", flush=True)
+        if not (signs and ok and same):
+            problems.append("the prepare stage's SDF disagrees with K3's "
+                            "plain route")
+        counts_ok("a workflow_prepare (one object)", prep_counts,
+                  {"gpg_counts": 0, "pointnet_trunk": 0,
+                   "point_triangle": 1})
+        out["by_path"]["workflow_prepare"] = prep_counts["point_triangle"]
+
+        # K2 at the eval stage: the test split again in this process
+        # through K2 and through its plain version
+        ns = argparse.Namespace(variant="1v", epochs=wf["epochs"],
+                                batch_size=int((passed("--batch-size")
+                                                or [None, 64])[1]))
+        cmd = iwf.eval_command(ns, root, os.path.join(
+            root, "learned_models"))[1:] + passed("--cloud-points") + [
+            "--device", dev_s]
+        from pointnetgpd_tpu_torch.cli import train as cli_train
+
+        def eval_acc():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli_train.main(cmd)
+            return test_acc(buf.getvalue())
+
+        l2 = k2._launch
+        rec_eval = []
+
+        def rec_eval2(x, folded):
+            rec_eval.append((x.clone(), folded))
+            return l2(x, folded)
+
+        zero_counts()
+        k2._launch = rec_eval2
+        try:
+            acc_k2 = eval_acc()
+        finally:
+            k2._launch = l2
+        eval_counts = read_counts()
+        with plain_kernels():
+            acc_plain = eval_acc()
+        # each of the eval pass's K2 launches against its plain version
+        e_k2, bad_k2 = 0.0, 0
+        for x, folded in rec_eval:
+            got, want = l2(x, folded), k2.trunk_reference(x, folded)
+            bad_k2 += int(((got - want).abs()
+                           > K2_TOL * (1 + want.abs())).sum())
+            e_k2 = max(e_k2, float((got - want).abs().max()))
+        shapes = sorted({tuple(x.shape) for x, _ in rec_eval})
+        print(f"15a: the eval stage's accuracy {summary['eval_acc']}; in "
+              f"this process through K2 {acc_k2}, through its plain "
+              f"version {acc_plain}; the {len(rec_eval)} recorded K2 "
+              f"launches {shapes} against trunk_reference: max |err| "
+              f"{e_k2:.3e}, {bad_k2} entries past {K2_TOL} x (1 + |want|)",
+              flush=True)
+        if not (acc_k2 == acc_plain == summary["eval_acc"]):
+            problems.append("the eval stage's accuracy differs in process "
+                            "or through K2's plain version")
+        if bad_k2:
+            problems.append("the eval stage's K2 launches disagree with "
+                            "trunk_reference")
+        counts_ok("a workflow_eval", eval_counts,
+                  {"gpg_counts": 0, "pointnet_trunk": 40,
+                   "point_triangle": 0})
+        out["by_path"]["workflow_eval"] = eval_counts["pointnet_trunk"]
+
+        # the detect stage's reference_parity frame through both kernels
+        # and through both plain versions
+        names = sorted(os.listdir(base))
+        kw = dict(seed=0, num_classes=2, num_seeds=wf["seeds"],
+                  num_point=750, device=dev_s, presets=("reference_parity",))
+        if passed("--cloud-pad-to"):
+            kw["cloud_pad_to"] = int(passed("--cloud-pad-to")[1])
+        ckpt = os.path.join(root, "learned_models")
+        raw_k, raw_p = {}, {}
+        with contextlib.redirect_stdout(io.StringIO()):
+            iwf.detect_stage(root, ckpt, names, raw=raw_k, **kw)
+            with plain_kernels():
+                iwf.detect_stage(root, ckpt, names, raw=raw_p, **kw)
+        a, b = raw_k["reference_parity"][0], raw_p["reference_parity"][0]
+        e_fr = (float(np.abs(a["all_frames"] - b["all_frames"]).max())
+                if len(a["all_frames"]) and a["n_valid"] == b["n_valid"]
+                else 0.0)
+        e_sc = (float(np.abs(a["all_scores"] - b["all_scores"]).max())
+                if len(a["all_scores"]) and a["n_valid"] == b["n_valid"]
+                else 0.0)
+        same = (a["n_valid"] == b["n_valid"]
+                and np.array_equal(a["pred"], b["pred"])
+                and np.array_equal(a["counts"], b["counts"])
+                and e_fr <= 1e-5 and e_sc <= 1e-4)
+        print(f"15a: reference_parity frame against both plain versions: "
+              f"n_valid {a['n_valid']} vs {b['n_valid']}, predictions and "
+              f"counts equal {same}, max |frame err| {e_fr:.2e} (1e-5), "
+              f"max |score err| {e_sc:.2e} (1e-4)", flush=True)
+        if not same:
+            problems.append("the detect stage disagrees with its plain "
+                            "route")
+
+        # b. gt_robustness on a's tree
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = gtr.main(["--root", root, "--num-seeds", str(wf["seeds"]),
+                            "--device", dev_s] + passed("--cloud-pad-to"))
+        gt_s = time.perf_counter() - t0
+        gt_counts = read_counts()
+        for arm, d in res.items():
+            print(f"15b: {arm}: objects {d['scene_objects']}; production "
+                  f"ground truth {json.dumps(d['production']['ground_truth'])}",
+                  flush=True)
+        print(f"15b: gt_robustness {gt_s:.1f} s ({card})", flush=True)
+        counts_ok("b gt_robustness", gt_counts,
+                  {"gpg_counts": 6 * n_pre, "pointnet_trunk": 4 * n_pre,
+                   "point_triangle": 0})
+        out["by_path"]["gt_robustness"] = gt_counts
+
+        # c. the demo in this process, each launch held to its plain version
+        rec = {"k1": [], "k2": [], "k3": []}
+        l1, l2, l3 = k1.GpgScanContext._launch, k2._launch, k3._launch
+
+        def rec1(ctx, fx, sc, is_y):
+            rec["k1"].append((ctx, fx.clone(), sc.clone(), is_y))
+            return l1(ctx, fx, sc, is_y)
+
+        def rec2(x, folded):
+            rec["k2"].append((x.clone(), folded))
+            return l2(x, folded)
+
+        def rec3(points, tri, sup, *rest):
+            rec["k3"].append((points.clone(), tri.clone(), sup.clone()))
+            return l3(points, tri, sup, *rest)
+
+        zero_counts()
+        k1.GpgScanContext._launch, k2._launch, k3._launch = rec1, rec2, rec3
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                demo.main(["--steps", str(demo_steps), "--device", dev_s])
+        finally:
+            k1.GpgScanContext._launch, k2._launch, k3._launch = l1, l2, l3
+        demo_s = time.perf_counter() - t0
+        demo_counts = read_counts()
+        for line in buf.getvalue().splitlines():
+            print(f"15c: {line}", flush=True)
+        errs = {"k1": 0, "k2": 0.0, "k3": 0.0}
+        for ctx, fx, sc, is_y in rec["k1"]:
+            got, want = l1(ctx, fx, sc, is_y), plain1(ctx, fx, sc, is_y)
+            act = ctx.active
+            errs["k1"] = max(errs["k1"], int((got[act] - want[act]).abs()
+                                             .max()) if act.any() else 0)
+        for x, folded in rec["k2"]:
+            got, want = l2(x, folded), k2.trunk_reference(x, folded)
+            if ((got - want).abs() > K2_TOL * (1 + want.abs())).any():
+                problems.append("demo: K2 disagrees with its plain version")
+            errs["k2"] = max(errs["k2"], float((got - want).abs().max()))
+        for pts, tri, sup in rec["k3"]:
+            ok, e = close_distances(l3(pts, tri, sup),
+                                    k3.min_point_triangle_dist2_torch(
+                                        pts, tri, sup))
+            errs["k3"] = max(errs["k3"], e)
+            if not ok:
+                problems.append("demo: K3 disagrees with its plain version")
+        if errs["k1"]:
+            problems.append("demo: K1 disagrees with its plain version")
+        print(f"15c: demo {demo_s:.1f} s ({card}); recorded launches K1 "
+              f"{len(rec['k1'])}, K2 {len(rec['k2'])}, K3 {len(rec['k3'])},"
+              f" each against its plain version: max |err| K1 {errs['k1']},"
+              f" K2 {errs['k2']:.3e}, K3 {errs['k3']:.3e}", flush=True)
+        if "demo complete" not in buf.getvalue():
+            problems.append("the demo did not complete")
+        counts_ok("c demo", demo_counts,
+                  {"gpg_counts": 3, "pointnet_trunk": 2, "point_triangle": 1})
+        out["by_path"]["demo"] = demo_counts
+
+        # d. the registration driver needs h5py for its database
+        try:
+            import h5py  # noqa: F401
+        except ImportError as e:
+            print(f"15d: execute_grasp_registration not run: h5py is not "
+                  f"installed on this machine ({e}); "
+                  f"tests/test_torch_examples_drivers.py holds it against "
+                  f"the JAX package on the CPU", flush=True)
+        else:
+            from pointnetgpd_tpu_torch.examples import \
+                execute_grasp_registration as reg
+
+            os.makedirs(os.path.join(tmp, "reg"))
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                r = reg.run(os.path.join(tmp, "reg"), device=dev_s)
+            reg_counts = read_counts()
+            print(f"15d: execute_grasp_registration {time.perf_counter() - t0:.1f}"
+                  f" s ({card}): {len(r['configs'])} stored grasps, "
+                  f"{int(r['collides'].sum())} in collision, best #{r['best']}",
+                  flush=True)
+            counts_ok("d registration", reg_counts["point_triangle"], 1)
+            out["by_path"]["registration"] = reg_counts["point_triangle"]
+
+        # e. the parity experiment's port half at its smallest size
+        pargs = ["--root", os.path.join(tmp, "parity"), "--skip-reference",
+                 "--objects", "parity_box", "parity_torus_mesh",
+                 "--grasps-per-class", "2", "--max-rounds", "2", "--epochs",
+                 "2", "--seeds", "1", "--device", dev_s, "--out-json",
+                 os.path.join(tmp, "parity.json"), "--out-md",
+                 os.path.join(tmp, "PARITY.md"), *parity_extra]
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tpe.main(pargs)
+        par_s = time.perf_counter() - t0
+        par_counts = read_counts()
+        curves = json.load(open(os.path.join(tmp, "parity.json")))
+        ours = curves["ours"][0]
+        print(f"15e: train_parity_experiment --skip-reference "
+              f"{' '.join(pargs[3:])}: {par_s:.1f} s ({card}); rows "
+              f"{curves['meta']['n_train']} train / {curves['meta']['n_test']}"
+              f" test per object, test accuracy {ours['test_acc']}, losses "
+              f"{ours['train_loss']}, prior {curves['meta']['test_prior']}",
+              flush=True)
+        if not np.isfinite(ours["train_loss"]).all():
+            problems.append("parity: a loss is not finite")
+        print(f"15e: launches {par_counts}", flush=True)
+        if on_card and (par_counts["point_triangle"] != 1
+                        or par_counts["pointnet_trunk"] == 0
+                        or par_counts["pointnet_trunk"] % 2):
+            problems.append(f"parity: launches {par_counts}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if problems:
+        fail("phase 15: " + "; ".join(problems))
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 15: {out['seconds']:.1f} s ({card})", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -4007,6 +4417,14 @@ def main():
                                rows=label["9b_rows"])
     k3_entry["launches_by_path"]["parity_dataset"] = (
         last["by_path"]["parity_dataset"])
+    # 15. the drivers of pointnetgpd_tpu_torch/examples/
+    ex = examples_phases(torch, card)
+    ex_by = ex["by_path"]
+    k3_entry["launches_by_path"]["workflow_prepare"] = (
+        ex_by["workflow_prepare"])
+    k3_entry["launches_by_path"]["demo"] = ex_by["demo"]["point_triangle"]
+    if "registration" in ex_by:
+        k3_entry["launches_by_path"]["registration"] = ex_by["registration"]
     study = last["by_path"]["study"]
     mesh_frame = par["by_path"]["mesh_frame"]
     ros = entry["10d run_ros_node pipeline=False"]
@@ -4028,7 +4446,14 @@ def main():
           f"pass {par['by_path']['ddp_eval']} K2 (2 ranks); the study "
           f"{study['gpg_counts']} K1 and {study['pointnet_trunk']} K2 (3 "
           f"scenes x 4 configs), the parity eval "
-          f"{last['by_path']['parity_eval']} K2; K3 "
+          f"{last['by_path']['parity_eval']} K2; the workflow's detect "
+          f"stage {ex_by['workflow_detect']['gpg_counts']} K1 and "
+          f"{ex_by['workflow_detect']['pointnet_trunk']} K2 (3 presets), "
+          f"its eval stage {ex_by['workflow_eval']} K2 (20 batches), "
+          f"gt_robustness {ex_by['gt_robustness']['gpg_counts']} K1 and "
+          f"{ex_by['gt_robustness']['pointnet_trunk']} K2, the demo "
+          f"{ex_by['demo']['gpg_counts']} K1 and "
+          f"{ex_by['demo']['pointnet_trunk']} K2; K3 "
           f"{k3_entry['launches_by_path']}", flush=True)
     print(f"labeling summary ({card}): {label['gps3']:.1f} labeled grasps/s "
           f"(3-D), {label['gps6']:.1f} (6-D); one torus object "
@@ -4048,7 +4473,12 @@ def main():
                               "warmup": entry["10c warmup"]["gpg_counts"],
                               "ros_node": ros["gpg_counts"],
                               "mesh_frame": mesh_frame["gpg_counts"],
-                              "study": study["gpg_counts"]},
+                              "study": study["gpg_counts"],
+                              "workflow_detect":
+                                  ex_by["workflow_detect"]["gpg_counts"],
+                              "gt_robustness":
+                                  ex_by["gt_robustness"]["gpg_counts"],
+                              "demo": ex_by["demo"]["gpg_counts"]},
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
@@ -4068,7 +4498,11 @@ def main():
              "tp_eval": par["by_path"]["tp_eval"],
              "ddp_eval": par["by_path"]["ddp_eval"],
              "study": study["pointnet_trunk"],
-             "parity_eval": last["by_path"]["parity_eval"]},
+             "parity_eval": last["by_path"]["parity_eval"],
+             "workflow_eval": ex_by["workflow_eval"],
+             "workflow_detect": ex_by["workflow_detect"]["pointnet_trunk"],
+             "gt_robustness": ex_by["gt_robustness"]["pointnet_trunk"],
+             "demo": ex_by["demo"]["pointnet_trunk"]},
          "max_abs_err": k2_err["64x500"], "ms": timing["k2_64x500"],
          "plain_ms": timing["k2_plain_64x500"], "bound_ms": k2_bound,
          "bound_by": "operations",

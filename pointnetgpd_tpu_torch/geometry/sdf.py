@@ -231,10 +231,11 @@ def surface_normal(sdf: SdfGrid, coords, delta: float = 1.5):
     return n.reshape(coords.shape), valid.reshape(coords.shape[:-1])
 
 
-def transform_dense(sdf: SdfGrid, t_4x4) -> SdfGrid:
+def transform_dense(sdf: SdfGrid, t_4x4, *, detailed: bool = True) -> SdfGrid:
     """Resample the grid under a rigid transform (sdf.py:592-660): each new
     cell reads the old grid at the inverse-transformed location by trilinear
-    interpolation (rotations leave distances invariant)."""
+    interpolation (rotations leave distances invariant). ``detailed`` is
+    the JAX package's keyword, which its body does not read either."""
     t = np.asarray(t_4x4, np.float64)
     rot, trans = t[:3, :3], t[:3, 3]
     dims = sdf.dims

@@ -222,6 +222,9 @@ def gpg_sample_candidates(
     min_open_points: int = 10,
     r_ball: float | None = None,
     point_frames=None,
+    seed_chunk: int = 8,
+    mesh=None,
+    exact: bool = False,
     camera_pos=None,
     bbox=None,
     normal_k: int = 30,
@@ -230,7 +233,6 @@ def gpg_sample_candidates(
     debug: bool = False,
     draws=None,
     seed: int = 0,
-    mesh=None,
 ):
     """GPG candidate generation, batched over (seed, theta) frames.
 
@@ -247,6 +249,11 @@ def gpg_sample_candidates(
         axis is split over its shards after every draw, each shard's three
         scans run on its device (K1 launches 3 times per shard), and the
         frames are gathered once.
+    seed_chunk, exact: the JAX package's keywords, accepted and no-ops.
+        JAX's ``seed_chunk`` bounds the peak memory of its CPU fallback
+        scan and ``exact`` forces exact top-k in its seed windows; here the
+        frames are counted by K1 (or its plain version) in one batch and
+        neighbor selection is always exact (``ops.cloud.min_k``).
     Returns ``GpgCandidates`` of num_seeds * n_theta frames in the random
     seed-selection order; with ``debug=True`` also a funnel dict keyed by
     ``FUNNEL_STAGES`` (+ ``seed_heights``).

@@ -162,9 +162,12 @@ def pairwise_d2(a, b, b_sq=None):
     return (sumsq3(a)[..., :, None] - 2.0 * cross) + b_sq[..., None, :]
 
 
-def min_k(d2, k: int):
+def min_k(d2, k: int, exact: bool = False):
     """(values, indices) of the k smallest entries along the last axis,
-    exact, ties toward the lower index (``lax.top_k(-d2, k)``)."""
+    exact, ties toward the lower index (``lax.top_k(-d2, k)``). ``exact`` is
+    the JAX package's switch away from ``lax.approx_min_k`` on the TPU; it
+    changes nothing here, since the selection is always exact (as JAX's is
+    on every other backend)."""
     vals, idx = torch.sort(d2, dim=-1, stable=True)
     return vals[..., :k], idx[..., :k]
 
@@ -185,10 +188,10 @@ def _orient(normals, points, camera_pos):
 
 
 def estimate_normals_knn(points, camera_pos, *, k: int = 30,
-                         chunk: int = 1024):
+                         chunk: int = 1024, exact: bool = False):
     """Per-point normals by exact k-NN plane fitting, flipped toward the
     camera. points (P, 3), or (B, P, 3) for B clouds at once; camera_pos
-    (3,). Query chunks bound memory."""
+    (3,). Query chunks bound memory. ``exact``: a no-op (see ``min_k``)."""
     p_total = points.shape[-2]
     k = min(k, p_total)
     if k == 0:
@@ -225,7 +228,8 @@ def _window_chunk_normals(ps, queries, starts, *, k, window, chunk_group):
 
 def estimate_normals_knn_window(points, camera_pos, *, k: int = 30,
                                 window: int = 2048, q_chunk: int = 256,
-                                bbox=None, chunk_group: int = 16, mesh=None):
+                                exact: bool = False, bbox=None,
+                                chunk_group: int = 16, mesh=None):
     """Morton-window KNN normals: each chunk of ``q_chunk`` consecutive
     Morton-sorted points searches only a ``window`` of surrounding sorted
     points (O(P * window)). ``bbox``: the real cloud's box when ``points``
@@ -235,7 +239,8 @@ def estimate_normals_knn_window(points, camera_pos, *, k: int = 30,
     the sorted cloud is padded to a multiple of ``q_chunk`` times the shard
     count and the window starts are clipped to the padded length, so the
     tail chunks' windows move with the shard count: equal to JAX at the
-    same mesh size, not to the unsharded normals there."""
+    same mesh size, not to the unsharded normals there. ``exact``: a no-op
+    (see ``min_k``)."""
     p_total = points.shape[0]
     if p_total <= max(window, q_chunk) or p_total <= k:
         return estimate_normals_knn(points, camera_pos, k=k)
@@ -272,10 +277,16 @@ def estimate_normals_knn_window(points, camera_pos, *, k: int = 30,
 
 
 def seed_window_normals(points, seed_idx, camera_pos, *, k: int = 30,
-                        knn: int = 100, window: int = 2048, bbox=None):
+                        knn: int = 100, window: int = 2048,
+                        exact: bool = False, bbox=None,
+                        seed_chunk: int = 32):
     """Normals for each seed's ``knn`` nearest neighbors only (the lazy
     alternative to all-P normals). Returns (pd2 (S, knn) squared seed ->
-    neighbor distances, nbr_normals (S, knn, 3), seed_normals (S, 3))."""
+    neighbor distances, nbr_normals (S, knn, 3), seed_normals (S, 3)).
+    ``exact`` and ``seed_chunk`` are accepted for the JAX package's callers
+    and change nothing: the selection is always exact (``min_k``), and all
+    seeds run as one batch (JAX's ``seed_chunk`` sizes the blocks of its
+    sequential map)."""
     p_total = points.shape[0]
     dev = points.device
     cam = torch.as_tensor(camera_pos, dtype=points.dtype, device=dev)

@@ -7,7 +7,8 @@ normals (whole cloud, or lazily in the GPG seed windows) -> GPG candidates
 ``GraspDetector.process_frame`` is pure (no ROS). The size-bucket,
 ``upload_dtype`` and adaptive-bucket logic are kept because results depend
 on them. Neighbor selection is always exact in the port, so the JAX
-config's ``sampler_exact`` switch has no counterpart. The stages carry
+config's ``sampler_exact`` switch is accepted and read by nothing. The
+stages carry
 ``torch.profiler.record_function`` labels (``frame.upload_voxel``,
 ``frame.normals``, ``frame.gpg``, ``frame.score``, ``frame.collect``),
 which cost nothing
@@ -74,6 +75,10 @@ class DetectorConfig:
     adaptive_bucket: bool = False
     adaptive_margin: float = 1.25
     upload_dtype: str = "float16"
+    # the JAX package's exact seed-window selection switch; a no-op here:
+    # the port selects neighbors exactly everywhere, as JAX does on every
+    # backend but the TPU (JAX ops/cloud.py min_k)
+    sampler_exact: bool = False
     crop_mode: str = "reference"
     seed_bias: str = "none"
 
@@ -82,7 +87,8 @@ class DetectorConfig:
         """The reference-shaped flow: whole-cloud exact KNN normals, fp32
         upload, raw-count size buckets, reference crop box."""
         cfg = dict(lazy_normals=False, upload_dtype="float32",
-                   normal_window=0, adaptive_bucket=False, seed_bias="none",
+                   normal_window=0, adaptive_bucket=False,
+                   sampler_exact=True, seed_bias="none",
                    crop_mode="reference")
         cfg.update(overrides)
         return cls(**cfg)
@@ -92,7 +98,8 @@ class DetectorConfig:
         """Lazy seed-window normals, fp16 upload, Morton-window KNN,
         adaptive buckets, training-frame crops."""
         cfg = dict(lazy_normals=True, upload_dtype="float16",
-                   normal_window=2048, adaptive_bucket=True, seed_bias="none",
+                   normal_window=2048, adaptive_bucket=True,
+                   sampler_exact=False, seed_bias="none",
                    crop_mode="dataset")
         cfg.update(overrides)
         return cls(**cfg)

@@ -2,10 +2,10 @@
 against the JAX package.
 
 Stated tolerances: ``make_scene`` equal bit for bit; ``study_configs`` equal
-field for field (JAX's ``sampler_exact`` aside: the port always selects
-exactly); ``compare_frame`` and ``summarize`` equal on the same
-dicts; ``pinned_normals_metrics`` within 1e-6 (JAX's estimators jitted, its
-exact KNN against the port's). ``run_study``:
+field for field (``sampler_exact`` too, which the port accepts and reads
+nowhere: it always selects exactly); ``compare_frame`` and ``summarize``
+equal on the same dicts; ``pinned_normals_metrics`` within 1e-6 (JAX's
+estimators jitted, its exact KNN against the port's). ``run_study``:
 ``tests/test_torch_normal_study_frames.py``.
 """
 
@@ -45,9 +45,6 @@ def test_study_configs_equal_jax(pad):
                                        "lazy_fp16"]
     for name in want:
         g, w = dataclasses.asdict(got[name]), dataclasses.asdict(want[name])
-        # the port's neighbor selection is exact everywhere, so its config
-        # has no ``sampler_exact`` switch (robot/node.py)
-        w.pop("sampler_exact")
         assert g == w, name
 
 

@@ -283,7 +283,6 @@ def test_detector_frame_on_a_mesh_matches_jax(lazy):
         jscorer.GraspScorer(params=params, state=state, k=3, num_points=256,
                             pad_to=32, mesh=jmesh.make_mesh()), JGripper(),
         jnode.DetectorConfig(**cfg))
-    cfg.pop("sampler_exact")
     det_t = tnode.GraspDetector(
         tscorer.GraspScorer(model=model, k=3, num_points=256, pad_to=32,
                             device="cpu", mesh=_cpu_mesh()),

@@ -20,6 +20,7 @@ the JAX package.
 import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -148,6 +149,17 @@ def test_port_has_every_module_of_the_jax_package():
         cu = ROOT / "pointnetgpd_tpu_torch" / "csrc" / (
             Path(port).stem + ".cu")
         assert cu.is_file(), cu
+    # the drivers in examples/ have theirs in the port's examples/
+    drivers = {p.name for p in (ROOT / "examples").glob("*.py")}
+    assert len(drivers) == 5
+    assert {f"examples/{d}" for d in drivers} <= port_mods
+    # no module of the port, and not chip_smoke.py, imports JAX or the JAX
+    # package
+    bad = re.compile(r"^\s*(import jax|from jax|import pointnetgpd_tpu\b"
+                     r"|from pointnetgpd_tpu[ .])", re.M)
+    sources = [ROOT / "pointnetgpd_tpu_torch" / m for m in port_mods] + [
+        ROOT / "chip_smoke.py"]
+    assert [str(f) for f in sources if bad.search(f.read_text())] == []
 
 
 SUBPACKAGES = ["grasping", "ops", "geometry", "inference", "models",
