@@ -51,7 +51,9 @@ Phases, in order; any failure exits non-zero:
    256 blocks and on its edge cases (one supertile, all-padding
    supertiles, a far block, degenerate triangles); mesh_to_sdf at dim 48,
    the convex decomposition and MeshProcessor against their plain routes;
-   timings; the supertiles K3 visits per block and the pairs it evaluates
+   the CPU route (mesh_to_sdf of the workflow's ellipsoid at sdf_dim 32) in
+   3 fresh processes, equal bit for bit; timings; the supertiles K3 visits
+   per block and the pairs it evaluates
    (its own counts, from a separate launch), beside what the TPU kernel's
    walk (index order) visits
    on the same inputs (``kernel_walk`` in plain torch) and what each
@@ -754,6 +756,23 @@ def k3_edge_cases(torch, k3, launch3, dev):
             fail(f"K3 disagrees with its {against}: {case}")
 
 
+def cpu_sdf_hashes(n):
+    """SHA-256 of the voxelizer's CPU SDF in each of ``n`` fresh
+    processes, one after another (``tools/cpu_roots_probe.py``'s child)."""
+    env = dict(os.environ, PYTHONPATH=HERE)
+    out = []
+    for _ in range(n):
+        res = subprocess.run(
+            [sys.executable, os.path.join(HERE, "tools", "cpu_roots_probe.py"),
+             "--child", "sdf"], cwd=HERE, env=env, capture_output=True,
+            text=True, timeout=600)
+        lines = [ln for ln in res.stdout.splitlines() if ln.startswith("SDF ")]
+        if res.returncode != 0 or not lines:
+            fail(f"CPU SDF child failed: {(res.stdout + res.stderr)[-3000:]}")
+        out.append(lines[0].split()[1])
+    return out
+
+
 def voxelizer_phases(torch, card):
     """Phase 7: the voxelizer path (see the module docstring). Returns the
     ``point_triangle`` entry of the kernels line."""
@@ -907,6 +926,19 @@ def voxelizer_phases(torch, card):
         if n_mp != 1 or not same:
             fail("MeshProcessor: K3 not launched once, or results differ "
                  "from the plain route")
+
+        # the CPU route in fresh processes: MKL's first vector-math call in
+        # a process could move its SDF (ROADMAP Queue C item 24)
+        t0 = time.perf_counter()
+        hashes = cpu_sdf_hashes(3)
+        same = len(set(hashes)) == 1
+        print(f"mesh_to_sdf(device='cpu') of the workflow's ellipsoid at "
+              f"sdf_dim 32 in 3 fresh processes (8 threads): equal bit for "
+              f"bit {same} ({time.perf_counter() - t0:.1f} s; torch "
+              f"{torch.__version__}, CPU capability "
+              f"{torch.backends.cpu.get_cpu_capability()})", flush=True)
+        if not same:
+            fail(f"the CPU route's SDF differs between processes: {hashes}")
 
         # e. timings
         ms = cuda_ms(torch, lambda: launch3(pts_b, tri_data, sup_data),

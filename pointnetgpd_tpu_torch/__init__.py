@@ -15,3 +15,11 @@ Entry points (``GraspScorer``, ``GraspDetector``, ``gpg_sample_candidates``,
 labeling CLI) run on ``device="cuda"`` unless the caller passes
 ``device="cpu"``; the labeling functions run on their SDF's device.
 """
+
+import torch as _torch
+
+# MKL detects the CPU on its first vector-math call in a process, and
+# threads that enter that call together can run the wrong kernel on their
+# share of the tensor: one call on one element detects it on this thread
+# first (ops/fp.py, ROADMAP Queue C item 24)
+_torch.sqrt(_torch.ones(1))

@@ -26,7 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.fp import fma, norm3
+from ..ops.fp import fma, norm3, sqrt
 
 
 class SdfGrid(NamedTuple):
@@ -137,7 +137,7 @@ def signed_distance(sdf: SdfGrid, coords):
         d2 = torch.sum((flat[c0:c0 + step, None, :]
                         - sdf.surface_points[None, :, :]) ** 2, dim=-1)
         nearest = torch.argmin(d2, dim=1)
-        dist_world = torch.sqrt(torch.gather(d2, 1, nearest[:, None]))[:, 0]
+        dist_world = sqrt(torch.gather(d2, 1, nearest[:, None]))[:, 0]
         parts.append(dist_world * sdf.resolution + sdf.surface_vals[nearest])
     oob_val = (torch.cat(parts) if parts else flat[:, 0]).reshape(
         coords.shape[:-1])

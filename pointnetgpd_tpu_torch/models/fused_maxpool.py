@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.fp import rsqrt
 from ..parallel.dist import active_group, all_reduce_, world_size
 from .layers import BN_EPS, batchnorm, linear, update_running_stats
 
@@ -97,7 +98,7 @@ class MatmulBnMax(torch.autograd.Function):
         ctx.group = group
         mean, var = _group_stats(mean, var, float(x.shape[0] * x.shape[1]),
                                  group)
-        a = gamma.float() * torch.rsqrt(var + BN_EPS)
+        a = gamma.float() * rsqrt(var + BN_EPS)
         pos = a >= 0
         h_sel = torch.where(pos, hmax.float(), hmin.float())
         idx = torch.where(pos, amax, amin)                    # (B, C)
@@ -112,7 +113,7 @@ class MatmulBnMax(torch.autograd.Function):
         bsz, n, f = x.shape
         m_tot = float(bsz * n) * world_size(ctx.group)
         gf = g.float()
-        r = torch.rsqrt(var + BN_EPS)
+        r = rsqrt(var + BN_EPS)
         a = gamma.float() * r
         s_g = gf.sum(dim=0)                                   # (C,)
         t_vec = (gf * ((h_sel - mean) * r)).sum(dim=0)        # (C,)

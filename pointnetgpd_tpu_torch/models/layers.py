@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.fp import rsqrt
 from ..parallel.dist import active_group, all_reduce_sum, world_size
 
 BN_EPS = 1e-5
@@ -41,7 +42,7 @@ def linear(layer, x):
 def batchnorm_eval(bn: nn.BatchNorm1d, x):
     """Eval-mode BatchNorm over the last (channel) axis, in the JAX order
     ``(x - mean) * rsqrt(var + eps) * scale + bias``."""
-    y = (x - bn.running_mean) * torch.rsqrt(bn.running_var + bn.eps)
+    y = (x - bn.running_mean) * rsqrt(bn.running_var + bn.eps)
     return y * bn.weight + bn.bias
 
 
@@ -79,7 +80,7 @@ def batchnorm_train(bn: nn.BatchNorm1d, x):
     update_running_stats(bn, mean.detach(), var.detach(), n)
     # centered first: a form y = a x + k would differentiate through
     # sum(g x) - mean sum(g), which cancels where |mean| >> std
-    a = torch.rsqrt(var + bn.eps).to(x.dtype) * bn.weight.to(x.dtype)
+    a = rsqrt(var + bn.eps).to(x.dtype) * bn.weight.to(x.dtype)
     return torch.addcmul(bn.bias.to(x.dtype), x - mean.to(x.dtype), a)
 
 

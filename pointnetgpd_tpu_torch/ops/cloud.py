@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from .fp import dot3, fma, sumsq3
+from .fp import dot3, fma, sqrt, sumsq3
 
 
 def voxel_downsample(points, n_grid: int = 500):
@@ -97,7 +97,7 @@ def _eberly_shifted(a):
     scale = torch.amax(torch.abs(a_c), dim=(-2, -1), keepdim=True)
     tiny = torch.tensor(1e-30, dtype=a.dtype, device=a.device)
     b = a_c / torch.maximum(scale, tiny)
-    p = torch.sqrt(torch.sum(b * b, dim=(-2, -1), keepdim=True) / 6.0)
+    p = sqrt(torch.sum(b * b, dim=(-2, -1), keepdim=True) / 6.0)
     c = b / torch.maximum(p, tiny)
     r = torch.clamp(torch.linalg.det(c)[..., None, None] / 2.0, -1.0, 1.0)
     phi = torch.arccos(r) / 3.0

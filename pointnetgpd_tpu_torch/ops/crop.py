@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .fp import dot3, fma, lin3, sumsq3
+from .fp import dot3, fma, lin3, norm3
 
 _SEG = 16
 _DIRECT_TOPK_MAX = 4096
@@ -147,7 +147,7 @@ def _crop_batch(pc, centers, rot_rows, box_lo, box_hi, num_out: int, draws,
 
 
 def _normalize(v):
-    return v / torch.sqrt(sumsq3(v))[..., None]
+    return v / norm3(v)[..., None]
 
 
 # peak bytes of the recenter pre-pass's (chunk, P) temporaries
@@ -242,19 +242,19 @@ def grasp_frame_from_config(grasps):
     binormal is +-z)."""
     center, axis = grasps[:, 0:3], grasps[:, 3:6]
     width, angle = grasps[:, 6], grasps[:, 7]
-    axis = axis / torch.sqrt(sumsq3(axis))[:, None]
+    axis = axis / norm3(axis)[:, None]
     cos_t, sin_t = torch.cos(angle), torch.sin(angle)
     zero = torch.zeros_like(axis[:, 0])
     axis_x = torch.stack([axis[:, 1], -axis[:, 0], zero], dim=1)
-    n_x = torch.sqrt(sumsq3(axis_x))
+    n_x = norm3(axis_x)
     axis_x = torch.where((n_x == 0)[:, None],
                          torch.tensor([1.0, 0.0, 0.0], dtype=grasps.dtype,
                                       device=grasps.device), axis_x)
-    axis_x = axis_x / torch.sqrt(sumsq3(axis_x))[:, None]
+    axis_x = axis_x / norm3(axis_x)[:, None]
     axis_z = _cross(axis_x, axis)
     # (R2 @ R1)[:, 0] = axis_x cos + axis_y 0 + axis_z sin
     approach = fma(axis_z, sin_t[:, None], axis_x * cos_t[:, None])
-    approach = approach / torch.sqrt(sumsq3(approach))[:, None]
+    approach = approach / norm3(approach)[:, None]
     minor = _cross(axis, approach)
     return center, approach, axis, minor, width
 

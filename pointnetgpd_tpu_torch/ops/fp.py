@@ -15,9 +15,18 @@ different points. These helpers spell out those roundings:
 - ``lin3``: a 3-term add chain ``a0 * x + a1 * y + a2 * z``, contracted as
   ``fma(a2, z, fma(a0, x, a1 * y))``.
 - ``sqrt``: the correctly rounded float32 square root, as XLA and CUDA give
-  it. Torch's vectorized float32 ``sqrt`` on the CPU is off by one ulp in
-  about 1 of 150 cases, so on the CPU it goes through float64 (the float64
-  root rounded to float32 is the correctly rounded float32 root).
+  it. Torch's float32 ``sqrt`` on the CPU is MKL's vector-math kernel, off
+  by one ulp in about 1 of 150 cases, so on the CPU it goes through float64
+  (the float64 root rounded to float32 is the correctly rounded float32
+  root; ``tools/cpu_roots_probe.py exhaustive`` checks every positive
+  float32).
+- ``rsqrt``: the correctly rounded float32 reciprocal square root on the
+  CPU (float64, then rounded), ``torch.rsqrt`` elsewhere. JAX's jitted CPU
+  ``rsqrt`` is XLA's ``vrsqrtps`` estimate refined by two Newton steps: a
+  table of the CPU's own, which no torch op reaches. It lies within one
+  ulp of the correctly rounded value, and agrees with it on more values
+  than with torch's float32 ``1 / sqrt(x)``; what ``rsqrt`` feeds,
+  BatchNorm, is held to the JAX package by a tolerance.
 
 - ``f64(fn, x, ...)``: a float32 function evaluated in float64 and rounded
   to float32. Torch's float32 transcendentals (sin, cos, arccos, ...),
@@ -28,6 +37,16 @@ different points. These helpers spell out those roundings:
 
 The CUDA kernels issue the same operations explicitly (``__fmaf_rn``), so the
 kernel and its plain version agree bit for bit.
+
+Torch's CPU ``sqrt`` (float32 and float64), ``exp``, ``sin`` and the other
+vector-math functions call MKL, which picks its kernel from a CPU type that
+it detects on its first call in a process. Threads that enter that first
+call together can read the detector's unmapped CPU code, and run MKL's
+low-accuracy AVX2 kernel on their share of the tensor (11 correct bits for
+a float32 root). The package's ``__init__`` makes one such call on one
+element, so the detection has run on one thread before any of the port's
+calls (ROADMAP Queue C item 24). ``rsqrt``, ``linalg.norm`` and the basic
+arithmetic do not call MKL.
 """
 
 from __future__ import annotations
@@ -66,6 +85,13 @@ def sqrt(x):
     if x.device.type == "cpu" and x.dtype == torch.float32:
         return torch.sqrt(x.to(torch.float64)).to(torch.float32)
     return torch.sqrt(x)
+
+
+def rsqrt(x):
+    """Correctly rounded float32 reciprocal square root on the CPU."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.rsqrt(x.to(torch.float64)).to(torch.float32)
+    return torch.rsqrt(x)
 
 
 def norm3(v):

@@ -24,7 +24,7 @@ import torch
 from ..geometry import sdf as sdf_lib
 from ..geometry.mesh import Mesh3D
 from . import point_triangle as k3
-from .fp import fma
+from .fp import fma, sqrt
 
 
 def _inside_parity(columns_xy, z0, res, tri_v, *, nz: int, chunk: int = 512):
@@ -124,7 +124,7 @@ def mesh_to_sdf(mesh: Mesh3D, dim: int = 100, padding: int = 5,
             torch.from_numpy(pts_blocked).to(dev),
             torch.from_numpy(tri_data).to(dev),
             torch.from_numpy(sup_data).to(dev))
-        dist = torch.sqrt(torch.clamp(unblock(d2), min=0.0))
+        dist = sqrt(torch.clamp(unblock(d2), min=0.0))
     else:
         ii, jj, kk = np.meshgrid(idx, idx, idx, indexing="ij")
         pts = origin + res * np.stack([ii, jj, kk], axis=-1)

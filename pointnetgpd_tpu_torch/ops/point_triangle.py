@@ -43,6 +43,7 @@ import torch
 
 from .. import _build
 from .cloud import morton_codes
+from .fp import sqrt
 
 BLOCK_POINTS = 128       # points per CUDA block, one per thread
 SUPER = 128              # triangles per supertile (pruning granularity)
@@ -223,7 +224,7 @@ def unsigned_distance_torch(points, tri_v):
     """(P,) min distance from each point (P, 3) to the triangles (F, 3, 3):
     the counterpart of ``mesh_to_sdf._unsigned_distance``."""
     d2 = _min_dist2_plain(points.float(), tri_v.float().reshape(-1, 9))
-    return torch.sqrt(d2)
+    return sqrt(d2)
 
 
 def stage_triangles(tri_data):
@@ -272,7 +273,7 @@ def stage_triangles(tri_data):
          torch.stack([recip(lab), recip(lac), rbc, -kb * rbc, kc], dim=1)],
         dim=1)
     centre = 0.5 * (v.amin(dim=1) + v.amax(dim=1))
-    r = torch.sqrt(((v - centre[:, None]) ** 2).sum(dim=2).amax(dim=1))
+    r = sqrt(((v - centre[:, None]) ** 2).sum(dim=2).amax(dim=1))
     return consts, torch.cat([centre, (r * _SPHERE_MARGIN)[:, None]], dim=1)
 
 
@@ -411,7 +412,7 @@ def kernel_walk(points_blocked, tri_data, sup_data, *, sorted_walk=True,
                 sp = spheres[rows][:, None]                 # (nbc, 1, 128, 4)
                 gap = _sphere_box_gap2(sp[..., :3], wctr[b][:, :, None],
                                        whalf[b][:, :, None])
-                reach = sp[..., 3] + wmax[b].sqrt()[:, :, None]
+                reach = sp[..., 3] + sqrt(wmax[b])[:, :, None]
                 keep = gap < reach * reach                    # (nbc, nw, 128)
                 d2 = torch.where(keep[:, :, None], d2, float("inf"))
                 pairs[b] += keep.sum(dim=(1, 2)) * WARP
@@ -420,7 +421,7 @@ def kernel_walk(points_blocked, tri_data, sup_data, *, sorted_walk=True,
             m[b] = torch.minimum(m[b], d2.amin(dim=-1))
         visited += take
         wmax = m.amax(dim=-1)
-        cur = wmax.amax(dim=-1).sqrt()
+        cur = sqrt(wmax.amax(dim=-1))
     out = torch.empty((nb, BLOCK_POINTS), device=dev)
     out[:, lanes] = m.reshape(nb, BLOCK_POINTS)
     return out.reshape(-1), visited, pairs
@@ -437,7 +438,7 @@ def warp_pairs_needed(points_blocked, tri_data, d2):
     pts = pts.reshape(-1, WARP, 3)
     wctr, whalf = _box(pts)
     wcur = d2.float().reshape(nb, BLOCK_POINTS)[:, lanes].reshape(-1, WARP)
-    wcur = wcur.amax(dim=1).sqrt()
+    wcur = sqrt(wcur.amax(dim=1))
     _, spheres = stage_triangles(tri_data)
     count = torch.zeros(pts.shape[0], dtype=torch.int64,
                         device=points_blocked.device)

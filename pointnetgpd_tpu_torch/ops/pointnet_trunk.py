@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .fp import sqrt
 
 launches = 0             # kernel launches (CUDA path only)
 # the kernel's output widths (template instances of csrc/pointnet_trunk.cu)
@@ -43,7 +44,7 @@ TF32_K_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
 
 def fold_bn(w, b, scale, bias, mean, var, eps: float = 1e-5):
     """Fold eval-mode BN into a linear layer: y = (x @ W.T + b) -> BN."""
-    gamma = scale / torch.sqrt(var + eps)
+    gamma = scale / sqrt(var + eps)
     return w * gamma[:, None], (b - mean) * gamma + bias
 
 

@@ -14,7 +14,9 @@ the JAX package.
 - every subpackage exports the JAX one's public names, less ``EXCUSED``;
   importing every subpackage builds no kernel and imports no JAX;
 - each ``pngpd-torch-*`` console script names a callable ``main`` of the
-  port's module that mirrors the JAX script of the same name.
+  port's module that mirrors the JAX script of the same name;
+- every square root of the port goes through ``ops/fp.py`` but the sites
+  listed in ``BARE_ROOTS``, each with the reason it needs no helper.
 """
 
 import importlib
@@ -153,14 +155,48 @@ def test_port_has_every_module_of_the_jax_package():
     drivers = {p.name for p in (ROOT / "examples").glob("*.py")}
     assert len(drivers) == 5
     assert {f"examples/{d}" for d in drivers} <= port_mods
-    # no module of the port, and not chip_smoke.py, imports JAX or the JAX
-    # package
+    # no module of the port, and not chip_smoke.py or the probe it runs,
+    # imports JAX or the JAX package
     bad = re.compile(r"^\s*(import jax|from jax|import pointnetgpd_tpu\b"
                      r"|from pointnetgpd_tpu[ .])", re.M)
     sources = [ROOT / "pointnetgpd_tpu_torch" / m for m in port_mods] + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py", ROOT / "tools" / "cpu_roots_probe.py"]
     assert [str(f) for f in sources if bad.search(f.read_text())] == []
 
+
+# every bare root of the port outside ops/fp.py, and why it needs no fp
+# helper (ROADMAP Queue C item 24): MKL's vector math, which torch.sqrt
+# calls on the CPU, can run the wrong kernel on a process's first call;
+# torch.linalg.norm is a reduction that takes the CPU's own square root
+# (tools/cpu_roots_probe.py dispatch)
+NOT_MKL = "torch.linalg.norm: a reduction with the CPU's own root, not MKL"
+BARE_ROOTS = {
+    "__init__.py": {"torch.sqrt(": (1, "the one-element call that runs "
+                                       "MKL's CPU detection on one thread")},
+    "ops/cloud.py": {"torch.linalg.norm(": (5, NOT_MKL)},
+    "ops/point_triangle.py": {"torch.linalg.norm(": (2, NOT_MKL)},
+    "grasping/quality.py": {"torch.linalg.norm(": (3, "float64 (the facet "
+                                                      "tests), or " + NOT_MKL)},
+}
+
+
+def test_square_roots_go_through_ops_fp():
+    pat = re.compile(r"torch\.sqrt\(|\.sqrt\(\)|torch\.rsqrt\("
+                     r"|torch\.linalg\.norm\(")
+    found = {}
+    base = ROOT / "pointnetgpd_tpu_torch"
+    for path in sorted(base.rglob("*.py")):
+        rel = str(path.relative_to(base))
+        if rel == "ops/fp.py":
+            continue
+        for line in path.read_text().splitlines():
+            if line.lstrip().startswith("#"):
+                continue
+            for m in pat.findall(line):
+                sites = found.setdefault(rel, {})
+                sites[m] = sites.get(m, 0) + 1
+    assert found == {rel: {m: n for m, (n, _) in sites.items()}
+                     for rel, sites in BARE_ROOTS.items()}
 
 SUBPACKAGES = ["grasping", "ops", "geometry", "inference", "models",
                "render", "database", "visualization", "learning", "utils",
