@@ -3,8 +3,9 @@ grasp-detection frame and its entry points, the mesh -> SDF voxelizer
 (object preparation), the trainer, dataset labeling, the RGB-D -> cloud
 path, data and tensor parallelism, the object database with its users, the
 last modules (contact surface windows, the normal-approximation study, the
-training-parity experiment, the profiler) and the drivers of
-``pointnetgpd_tpu_torch/examples/``.
+training-parity experiment, the profiler), the drivers of
+``pointnetgpd_tpu_torch/examples/`` and the benchmark program
+``python -m pointnetgpd_tpu_torch.bench``.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -264,6 +265,25 @@ Phases, in order; any failure exits non-zero:
    (K3, one object counted here), ``workflow_eval`` (K2),
    ``workflow_detect``, ``gt_robustness`` and ``demo`` (K1, K2; K3 for the
    demo), and ``registration`` (K3) where it ran.
+16. the benchmark program (``bench_phase``): ``python -m
+   pointnetgpd_tpu_torch.bench`` in a fresh process at its own sizes (the
+   JAX ``bench.py``'s), its last line read. It must carry no ``error`` and
+   no ``partial``, a finite positive headline and every family's numbers
+   finite; ``extras.device`` must name this card; K2 2 launches per scene
+   (fp32 and bf16), K1 3 and K2 2 per frame, K3 1 per voxelizer call, and
+   K3 within rtol 1e-4 of the dense route (``voxelizer_k3_max_rel_diff``:
+   |k3 - dense^2| / max(dense^2, 1e-6 m^2)). Then, in this process
+   (``bench_parity``), the bench's K1 and K2 launch sites on its own
+   inputs: the headline scene (512 x 750 over 20,000 points) and its bf16
+   twin through ``score_scene`` (K2 2 launches each), and one frame of the
+   bench's detector on the tabletop (K1 3, K2 2), each recorded launch
+   held to its plain version (K1 equal on the active frames, K2 within
+   1e-4 x (1 + |plain|)); the fp32 scene's pred, counts, valid and good
+   equal to its run through the plain versions, its order equal up to
+   candidates whose scores agree within 1e-4 and its prob within 1e-4;
+   the frame's n_valid, pred and counts equal, its scores within 1e-4.
+   The kernels line gains a ``launches_by_path`` entry ``bench`` for each
+   kernel (the bench's totals; K2<512>'s from K2's count by width).
 
 Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
 slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
@@ -348,19 +368,6 @@ def device_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
     return out.splitlines()[0] if out else "unknown"
-
-
-def tabletop_scene():
-    """bench.py's segmented tabletop: three boxes over ~0.6 m, 18k points."""
-    rs = np.random.RandomState(0)
-    objs = []
-    for cx, cy in ((-0.25, -0.15), (0.2, 0.25), (0.05, -0.3)):
-        n = 2000
-        top = rs.rand(n, 3) * [0.06, 0.06, 0] + [cx, cy, 0.08]
-        front = rs.rand(n, 3) * [0.06, 0, 0.06] + [cx, cy, 0.02]
-        side = rs.rand(n, 3) * [0, 0.06, 0.06] + [cx + 0.06, cy, 0.02]
-        objs.append(np.concatenate([top, front, side]).astype(np.float32))
-    return np.concatenate(objs), np.array([1.0, 1.0, 1.2], np.float32)
 
 
 def cuda_ms(torch, fn, iters, warm=3):
@@ -1802,12 +1809,10 @@ def labeling_phases(torch, card, dev="cuda", attempts=256, torus=TORUS,
                 make_sdf(data, origin, res, device="cpu"))
 
     # a. bench.py's labeling cell at its own sizes
-    dim, res, r = 48, 0.0025, 0.045
-    origin = -res * (dim - 1) / 2 * np.ones(3)
-    ii, jj, kk = np.meshgrid(*(np.arange(dim),) * 3, indexing="ij")
-    data = (np.linalg.norm(origin + res * np.stack([ii, jj, kk], -1),
-                           axis=-1) - r).astype(np.float32)
-    sph_card, sph_cpu = both(data, origin, res)
+    from pointnetgpd_tpu_torch.bench import LABEL_SPHERE, sphere_sdf_data
+
+    data, origin = sphere_sdf_data(*LABEL_SPHERE)
+    sph_card, sph_cpu = both(data, origin, LABEL_SPHERE[1])
     com = np.zeros(3, np.float32)
     tape = Tape(9)
 
@@ -2248,6 +2253,7 @@ def warmup_child(mode, dev, pad, max_points):
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from pointnetgpd_tpu_torch.bench import tabletop
     from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
     from pointnetgpd_tpu_torch.ops import gpg_counts as k1
     from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
@@ -2262,7 +2268,7 @@ def warmup_child(mode, dev, pad, max_points):
         HERE, "tests", "fixtures", "golden_pointnet_3class.npz"), device=dev,
         k=3)
     det = GraspDetector(scorer, config=DetectorConfig(cloud_pad_to=pad))
-    pts, cam = tabletop_scene()
+    pts, cam = tabletop()
     out = {"mode": mode}
     if mode == "warm":
         zero_counts()
@@ -2316,6 +2322,7 @@ def entry_phases(torch, card, dev="cuda", ckpt_dir=None, trained=None,
     import io
     import tempfile
 
+    from pointnetgpd_tpu_torch.bench import tabletop
     from pointnetgpd_tpu_torch.cli import infer
     from pointnetgpd_tpu_torch.draws import Draws
     from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
@@ -2519,7 +2526,7 @@ def entry_phases(torch, card, dev="cuda", ckpt_dir=None, trained=None,
         ros_model.fc3.bias[2] += 3.0
     det = node.GraspDetector(GraspScorer(model=ros_model, k=3, device=dev),
                              config=node.DetectorConfig(cloud_pad_to=pad))
-    pts, cam = tabletop_scene() if scene is None else scene
+    pts, cam = tabletop() if scene is None else scene
     holder = [None]
     published, names = fake_ros(holder)
     try:
@@ -2767,6 +2774,7 @@ def mesh_phases(torch, card, dev="cuda", ckpt=None, k2_1024_ms=None,
     path and the 512-row instance's entry of the kernels line."""
     import copy
 
+    from pointnetgpd_tpu_torch.bench import tabletop
     from pointnetgpd_tpu_torch.draws import Draws
     from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
     from pointnetgpd_tpu_torch.models.pointnet import PointNetCls
@@ -2785,7 +2793,7 @@ def mesh_phases(torch, card, dev="cuda", ckpt=None, k2_1024_ms=None,
     on_card = dev.type == "cuda"
     named = "cuda:0" if on_card else "cpu"
     mesh = make_mesh(2, device=named)
-    pts, cam = scene or tabletop_scene()
+    pts, cam = scene or tabletop()
     out = {"by_path": {}}
     t_phase = time.perf_counter()
 
@@ -4123,6 +4131,217 @@ def examples_phases(torch, card, dev="cuda", wf=None, demo_steps=30,
     return out
 
 
+# the bench's numbers that phase 16 reads, each finite and positive
+BENCH_FAMILIES = (
+    "matmul_anchor_8192_ms", "matmul_anchor_tflops",
+    "scene_latency_ms_512_candidates", "bf16_candidates_per_sec",
+    "train_samples_per_sec_per_chip_750pt_b128",
+    "train_bf16_samples_per_sec_per_chip", "labeled_grasps_per_sec",
+    "labeled_grasps_per_sec_6d", "voxelizer_pallas_ms_100cube_8192tri",
+    "voxelizer_pallas_speedup_vs_xla", "voxelizer_dense_ms",
+    "online_frame_ms_18k_tabletop_150_seeds", "online_frame_pipelined_ms")
+# ... and the launch counts it must find
+BENCH_LAUNCHES = {"k2_launches_per_scene": 2,
+                  "k2_launches_per_scene_bf16": 2,
+                  "online_frame_k1_launches_per_frame": 3,
+                  "online_frame_k2_launches_per_frame": 2,
+                  "voxelizer_k3_launches_per_call": 1}
+
+
+def bench_phase(card, kind, timeout_s=600):
+    """Phase 16: the benchmark program in a fresh process, its last line
+    held to the contract (see the module docstring). Returns its launch
+    totals and its line."""
+    env = dict(os.environ, BENCH_DEADLINE_S=str(timeout_s - 60))
+    env.pop("BENCH_ALLOW_CPU", None)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, "-m", "pointnetgpd_tpu_torch.bench"], cwd=HERE,
+            env=env, capture_output=True, text=True, timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 16: the bench ran past {timeout_s} s")
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        fail(f"phase 16: exit {proc.returncode}, no JSON last line; stderr "
+             f"{proc.stderr[-2000:]}")
+    ex = line.get("extras", {})
+    problems = []
+    if proc.returncode != 0 or len(lines) != 1:
+        problems.append(f"exit {proc.returncode}, {len(lines)} lines")
+    if "error" in line:
+        problems.append(f"error: {line['error']}")
+    for key in ("partial", "family_errors"):
+        if key in ex:
+            problems.append(f"{key}: {ex[key]}")
+    value = line.get("value")
+    if not (isinstance(value, (int, float)) and math.isfinite(value)
+            and value > 0):
+        problems.append(f"headline {value}")
+    for key in BENCH_FAMILIES:
+        v = ex.get(key)
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            problems.append(f"{key} = {v}")
+    if kind not in str(ex.get("device")):
+        problems.append(f"device {ex.get('device')!r} does not name {kind}")
+    for key, want in BENCH_LAUNCHES.items():
+        if ex.get(key) != want:
+            problems.append(f"{key} = {ex.get(key)}, expected {want}")
+    rel = ex.get("voxelizer_k3_max_rel_diff")
+    if not (isinstance(rel, float) and rel <= K3_TOL[0]):
+        problems.append(f"K3 against the dense route: {rel} (rtol 1e-4)")
+    print(f"16 bench ({card}): exit {proc.returncode} in {wall:.1f} s, "
+          f"device {ex.get('device')!r}; {value} candidates/s "
+          f"(512 x 750 over 20,000 points)", flush=True)
+    for key in BENCH_FAMILIES + tuple(BENCH_LAUNCHES) + (
+            "matmul_anchor_fp32_bound_ms", "voxelizer_k3_max_rel_diff",
+            "launches"):
+        print(f"  {key}: {ex.get(key)} ({card})")
+    for name, ms in ex.get("rep_ms", {}).items():
+        print(f"  rep_ms {name}: {ms} ({card})")
+    print(f"  sizes {ex.get('sizes')}", flush=True)
+    if problems:
+        print(proc.stderr[-3000:], flush=True)
+        fail("phase 16: " + "; ".join(problems))
+    return {"by_path": ex["launches"], "seconds": wall, "line": line}
+
+
+def bench_parity(torch, card, dev="cuda", scene_sizes=None,
+                 frame_sizes=None):
+    """Phase 16, in this process: the bench's launch sites on its own inputs
+    (``scene_sizes``/``frame_sizes``: the keywords of ``headline_scene`` and
+    ``tabletop``, for a CPU rehearsal), each recorded launch held to its
+    plain version and each family's output to its run through the plain
+    versions. Returns the problems found."""
+    import contextlib
+
+    from pointnetgpd_tpu_torch import bench
+    from pointnetgpd_tpu_torch.draws import Draws
+    from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
+    from pointnetgpd_tpu_torch.ops import gpg_counts as k1
+    from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
+    from pointnetgpd_tpu_torch.robot.node import DetectorConfig, GraspDetector
+
+    dev = torch.device(dev)
+    on_card = dev.type == "cuda"
+    launch1, launch2 = k1.GpgScanContext._launch, k2._launch
+    rec = {"k1": [], "k2": []}
+    problems = []
+
+    def rec1(ctx, fx, sc, is_y):
+        rec["k1"].append((ctx, fx.clone(), sc.clone(), is_y))
+        return launch1(ctx, fx, sc, is_y)
+
+    def rec2(x, folded):
+        rec["k2"].append((x.clone(), folded))
+        return launch2(x, folded)
+
+    def plain1(ctx, fx, sc, is_y):
+        return k1.gpg_scan_counts_torch(ctx.points, ctx.seeds, ctx.rot_rows,
+                                        fx, sc, ctx.boxes, scan_is_y=is_y)
+
+    @contextlib.contextmanager
+    def routed(route1, route2):
+        k1.GpgScanContext._launch, k2._launch = route1, route2
+        try:
+            yield
+        finally:
+            k1.GpgScanContext._launch, k2._launch = launch1, launch2
+
+    def held(name, fn, want_counts):
+        """fn() through the kernels, recorded, and through their plain
+        versions; each recorded launch against its plain version."""
+        rec["k1"].clear()
+        rec["k2"].clear()
+        zero_counts()
+        with routed(rec1, rec2):
+            got = fn()
+        n = read_counts()
+        with routed(plain1, k2.trunk_reference):
+            want = fn()
+        e1 = e2 = 0.0
+        bad = 0
+        with torch.no_grad():
+            for ctx, fx, sc, is_y in rec["k1"]:
+                act = ctx.active
+                d = (launch1(ctx, fx, sc, is_y)[act]
+                     - plain1(ctx, fx, sc, is_y)[act]).abs()
+                e1 = max(e1, float(d.max()) if d.numel() else 0.0)
+            for x, folded in rec["k2"]:
+                a, b = launch2(x, folded), k2.trunk_reference(x, folded)
+                d = (a - b).abs()
+                e2 = max(e2, float(d.max()))
+                bad += int((d > K2_TOL * (1 + b.abs())).sum())
+        want_n = {k: v if on_card else 0 for k, v in want_counts.items()}
+        print(f"16 {name}: launches {n}; each recorded launch against its "
+              f"plain version: K1 max |err| {e1:g} (0 on the active "
+              f"frames), K2 max |err| {e2:.3e} ({bad} entries past "
+              f"{K2_TOL:g} x (1 + |plain|))", flush=True)
+        if n != want_n or e1 != 0 or bad:
+            problems.append(f"{name}: launches {n} (want {want_n}), K1 "
+                            f"{e1}, K2 {bad} past the tolerance")
+        return got, want
+
+    def ranks_agree(got, want):
+        """(pred, counts, valid, good equal, order equal, order equal up to
+        candidates whose best-class scores agree within K2_TOL, max |prob
+        err|) of two score_candidates_fused results."""
+        pred, prob, counts, valid, good, order = got
+        same = all(torch.equal(a, b) for a, b in zip(
+            (pred, counts, valid, good), (want[0], want[2], want[3],
+                                          want[4])))
+        score = want[1][:, -1]
+        near = bool((score[order] - score[want[5]]).abs().max() <= K2_TOL)
+        return (same, torch.equal(order, want[5]), near,
+                float((prob - want[1]).abs().max()))
+
+    # the headline scene and its bf16 twin
+    pc_np, cands_np = bench.headline_scene(**(scene_sizes or {}))
+    pc = torch.from_numpy(pc_np).to(dev)
+    cands = torch.from_numpy(cands_np).to(dev)
+    valid = torch.ones((cands.shape[0],), dtype=torch.bool, device=dev)
+    model = bench.seeded_model(3, 0, dev).eval()
+    m16 = GraspScorer(model=bench.seeded_model(3, 0, dev).eval(), k=3,
+                      num_points=bench.NUM_POINTS, device=dev).as_dtype(
+        torch.bfloat16).model
+    for name, m in (("headline scene", model), ("bf16 scene", m16)):
+        got, want = held(name, lambda: bench.score_scene(
+            m, pc, cands, valid, Draws(0, dev)), {
+            "gpg_counts": 0, "pointnet_trunk": 2, "point_triangle": 0})
+        same, exact, near, e_prob = ranks_agree(got, want)
+        print(f"16 {name} ({cands.shape[0]} candidates over "
+              f"{pc.shape[0]} points) against the plain route: pred, "
+              f"counts, valid, good equal {same}; order equal {exact} (up "
+              f"to scores within {K2_TOL:g}: {near}); max |prob err| "
+              f"{e_prob:.2e} ({K2_TOL:g}; {card})", flush=True)
+        # bf16 activations can turn a 1e-6 K2 difference into a rounding
+        # step, so only the fp32 scene is held end to end
+        if m is model and not (same and near and e_prob <= K2_TOL):
+            problems.append(f"{name} differs from its plain route")
+
+    # one frame of the online family, on the bench's detector
+    det = GraspDetector(GraspScorer(model=model, k=3,
+                                    num_points=bench.FRAME_NUM_POINTS,
+                                    device=dev),
+                        config=DetectorConfig(cloud_pad_to=bench.FRAME_PAD_TO))
+    pts, cam = bench.tabletop(**(frame_sizes or {}))
+    got, want = held("frame", lambda: det.process_frame(pts, cam, seed=0), {
+        "gpg_counts": 3, "pointnet_trunk": 2, "point_triangle": 0})
+    same = (got["n_valid"] == want["n_valid"]
+            and np.array_equal(got["pred"], want["pred"])
+            and np.array_equal(got["counts"], want["counts"]))
+    e_score = float(np.abs(got["all_scores"] - want["all_scores"]).max())
+    print(f"16 frame ({len(pts)} points) against the plain route: n_valid, "
+          f"pred and counts equal {same}; max |score err| {e_score:.2e} "
+          f"(1e-4; {card})", flush=True)
+    if not same or e_score > 1e-4:
+        problems.append("frame differs from its plain route")
+    return problems
+
+
 def main():
     import torch
 
@@ -4152,6 +4371,7 @@ def main():
     sass_check(_build.build())
     k3_ptxas()
 
+    from pointnetgpd_tpu_torch.bench import tabletop
     from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
     from pointnetgpd_tpu_torch.ops import gpg_counts as k1
     from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
@@ -4163,7 +4383,7 @@ def main():
                                      "golden_io.npz"))
     scorer = GraspScorer.from_checkpoint(ckpt, device=dev, k=3)
     det = GraspDetector(scorer, config=DetectorConfig(cloud_pad_to=4096))
-    pts, cam = tabletop_scene()
+    pts, cam = tabletop()
 
     # 3. K1 vs plain: record the three scans of one frame at main-path shapes
     rec = {"k1": [], "k2": []}
@@ -4457,6 +4677,14 @@ def main():
     k3_entry["launches_by_path"]["demo"] = ex_by["demo"]["point_triangle"]
     if "registration" in ex_by:
         k3_entry["launches_by_path"]["registration"] = ex_by["registration"]
+    # 16. the benchmark program
+    bench = bench_phase(card, kind)
+    problems = bench_parity(torch, card)
+    if problems:
+        fail("phase 16: " + "; ".join(problems))
+    k3_entry["launches_by_path"]["bench"] = bench["by_path"]["point_triangle"]
+    par["k512"]["launches_by_path"]["bench"] = (
+        bench["by_path"]["pointnet_trunk_512"])
     study = last["by_path"]["study"]
     mesh_frame = par["by_path"]["mesh_frame"]
     ros = entry["10d run_ros_node pipeline=False"]
@@ -4485,7 +4713,9 @@ def main():
           f"gt_robustness {ex_by['gt_robustness']['gpg_counts']} K1 and "
           f"{ex_by['gt_robustness']['pointnet_trunk']} K2, the demo "
           f"{ex_by['demo']['gpg_counts']} K1 and "
-          f"{ex_by['demo']['pointnet_trunk']} K2; K3 "
+          f"{ex_by['demo']['pointnet_trunk']} K2; the bench "
+          f"{bench['by_path']['gpg_counts']} K1 and "
+          f"{bench['by_path']['pointnet_trunk']} K2; K3 "
           f"{k3_entry['launches_by_path']}", flush=True)
     print(f"labeling summary ({card}): {label['gps3']:.1f} labeled grasps/s "
           f"(3-D), {label['gps6']:.1f} (6-D); one torus object "
@@ -4510,7 +4740,8 @@ def main():
                                   ex_by["workflow_detect"]["gpg_counts"],
                               "gt_robustness":
                                   ex_by["gt_robustness"]["gpg_counts"],
-                              "demo": ex_by["demo"]["gpg_counts"]},
+                              "demo": ex_by["demo"]["gpg_counts"],
+                              "bench": bench["by_path"]["gpg_counts"]},
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
@@ -4534,7 +4765,8 @@ def main():
              "workflow_eval": ex_by["workflow_eval"],
              "workflow_detect": ex_by["workflow_detect"]["pointnet_trunk"],
              "gt_robustness": ex_by["gt_robustness"]["pointnet_trunk"],
-             "demo": ex_by["demo"]["pointnet_trunk"]},
+             "demo": ex_by["demo"]["pointnet_trunk"],
+             "bench": bench["by_path"]["pointnet_trunk"]},
          "max_abs_err": k2_err["64x500"], "ms": timing["k2_64x500"],
          "plain_ms": timing["k2_plain_64x500"], "bound_ms": k2_bound,
          "bound_by": "operations",
