@@ -1,0 +1,8 @@
+"""Host time per unit in the program's ``train.fwd_bwd`` range (traced
+window)."""
+
+from benchmarks.metrics._span import per_unit_ms
+
+
+def read(ctx):
+    return per_unit_ms(ctx, "train.fwd_bwd")
