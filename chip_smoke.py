@@ -83,8 +83,9 @@ Phases, in order; any failure exits non-zero:
    the 1v_mc and 1v_gpd variants through ``cli.train.main`` (the card by
    default); timings (CUDA events) of the fp32, bf16 and fused_maxpool steps
    with samples/s and peak memory, and of a GPD step. With ``--profile``,
-   host time per ``record_function`` span (``train.*``, ``eval.*``) and the
-   device's busy share of one train step and one eval batch.
+   host time per span (the step's ``train.*`` and the eval batch's crop,
+   which the smoke marks ``eval.crop`` itself) and the device's busy share
+   of one train step and one eval batch.
 9. the labeling path (``labeling_phases``), each card result held to the
    same computation on the CPU under one replayed draw tape (``Tape``): a
    lane that differs must lie within 1e-5 relative of its threshold

@@ -16,7 +16,10 @@ attempts with a validity mask; retries are a host loop (``sample_until``).
   ``ops.gpg_counts`` (kernel K1 on the card, its plain version on the CPU).
   Kept from the JAX version: ``seed_bias``, the ``debug`` funnel, the
   active frame compaction and the Morton seed order; neighbor selection is
-  always exact.
+  always exact. Its stages carry ``utils.profiling.span`` ranges:
+  ``gpg.seeds``, ``gpg.local_frames`` (holding ``cloud.window_normals``),
+  ``gpg.compact``, ``gpg.tiles``, ``gpg.dy``, ``gpg.approach``,
+  ``gpg.final`` and ``gpg.unsort``.
 - ``gpg_sample_grasps_sdf`` / ``point_sample_grasps_sdf``: the same GPG loop
   on an SDF's surface (grasp_sampler.py:806-1170), so they launch K1 too.
 
@@ -39,6 +42,7 @@ from ..ops.cloud import (extreme_eigvecs_sym3x3, min_k, morton_codes,
                          pairwise_d2, seed_window_normals)
 from ..ops.fp import dot3, f64, fma, norm3
 from ..ops.gpg_counts import GpgScanContext
+from ..utils.profiling import span
 from . import quality
 from .grasp import (approach_collision_free, close_fingers,
                     grasp_from_contact_and_axis, perpendicular_table)
@@ -101,9 +105,10 @@ def _covariance_frames(points, normals, seed_idx, seeds_xyz, knn, r_ball,
             raise ValueError(
                 "gpg_sample_candidates(normals=None) estimates normals "
                 "inside seed windows and needs normal_window > 0")
-        pd2, nn, seed_normals = seed_window_normals(
-            points, seed_idx, camera_pos, k=normal_k, knn=knn,
-            window=normal_window, bbox=bbox)
+        with span("cloud.window_normals"):
+            pd2, nn, seed_normals = seed_window_normals(
+                points, seed_idx, camera_pos, k=normal_k, knn=knn,
+                window=normal_window, bbox=bbox)
     else:
         pd2, nbr = min_k(pairwise_d2(seeds_xyz, points), knn)
         nn = normals[nbr]
@@ -135,74 +140,83 @@ def _frames_block(points, seeds_rep, rr, m_ok_rep, above_rep, pre_ok, *,
     n_frames, n_dy = seeds_rep.shape[0], dys.shape[0]
     t_normal, t_major, minor_rep = rr[:, 0], rr[:, 1], rr[:, 2]
     # debug needs real counts for every frame (funnel attribution)
-    ctx = GpgScanContext(points, seeds_rep, rr, boxes_np,
-                         active=torch.ones_like(pre_ok) if debug else pre_ok)
+    with span("gpg.tiles"):
+        ctx = GpgScanContext(points, seeds_rep, rr, boxes_np,
+                             active=torch.ones_like(pre_ok) if debug
+                             else pre_ok)
     # dy scan (grasp_sampler.py:1539-1563): middle valid dy
-    c1 = ctx.counts(torch.full((n_frames,), -bite, dtype=dtype, device=dev),
-                    dys.expand(n_frames, n_dy), scan_is_y=True)  # (F, dy, 4)
-    oks = ((c1[..., 0] > 0) & (c1[..., 1] == 0) & (c1[..., 2] == 0)
-           & (c1[..., 3] == 0))
-    n_ok = oks.sum(dim=1)
-    target = torch.ceil(n_ok / 2.0).to(torch.int32)
-    cum = torch.cumsum(oks.to(torch.int32), dim=1)
-    pick = torch.argmax(((cum == target[:, None]) & oks).to(torch.int8),
-                        dim=1)
-    dy_pick = dys[pick]
-    base = fma(t_major, dy_pick[:, None], seeds_rep)
-    bc = fma(t_normal, -bite, base)
+    with span("gpg.dy"):
+        c1 = ctx.counts(torch.full((n_frames,), -bite, dtype=dtype,
+                                   device=dev),
+                        dys.expand(n_frames, n_dy), scan_is_y=True)  # (F,dy,4)
+        oks = ((c1[..., 0] > 0) & (c1[..., 1] == 0) & (c1[..., 2] == 0)
+               & (c1[..., 3] == 0))
+        n_ok = oks.sum(dim=1)
+        target = torch.ceil(n_ok / 2.0).to(torch.int32)
+        cum = torch.cumsum(oks.to(torch.int32), dim=1)
+        pick = torch.argmax(((cum == target[:, None]) & oks).to(torch.int8),
+                            dim=1)
+        dy_pick = dys[pick]
+        base = fma(t_major, dy_pick[:, None], seeds_rep)
+        bc = fma(t_normal, -bite, base)
 
-    # downward-grasp guard (grasp_sampler.py:1564-1569)
-    finger_top = fma(t_normal, gripper.hand_depth, bc)
-    downward = finger_top[:, 2] < bc[:, 2] - gripper.hand_depth * 0.5
-    theta_ok = (n_ok > 0) & downward
+        # downward-grasp guard (grasp_sampler.py:1564-1569)
+        finger_top = fma(t_normal, gripper.hand_depth, bc)
+        downward = finger_top[:, 2] < bc[:, 2] - gripper.hand_depth * 0.5
+        theta_ok = (n_ok > 0) & downward
 
     # approach along +normal until collision (grasp_sampler.py:1574-1585)
-    steps = torch.arange(approach_steps, dtype=dtype,
-                         device=dev) * approach_step
-    c2 = ctx.counts(dy_pick,
-                    (-bite + steps).expand(n_frames, approach_steps),
-                    scan_is_y=False)
-    collides = (c2[..., 1] > 0) | (c2[..., 2] > 0) | (c2[..., 3] > 0)
-    hit = collides.any(dim=1)
-    s_hit = steps[torch.argmax(collides.to(torch.int8), dim=1)]
-    x_bc2 = (-bite + s_hit) - approach_step * 3.0                 # (F,)
-    bc2 = fma(x_bc2[:, None], t_normal, base)
+    with span("gpg.approach"):
+        steps = torch.arange(approach_steps, dtype=dtype,
+                             device=dev) * approach_step
+        c2 = ctx.counts(dy_pick,
+                        (-bite + steps).expand(n_frames, approach_steps),
+                        scan_is_y=False)
+        collides = (c2[..., 1] > 0) | (c2[..., 2] > 0) | (c2[..., 3] > 0)
+        hit = collides.any(dim=1)
+        s_hit = steps[torch.argmax(collides.to(torch.int8), dim=1)]
+        x_bc2 = (-bite + s_hit) - approach_step * 3.0             # (F,)
+        bc2 = fma(x_bc2[:, None], t_normal, base)
 
-    # table clearance (grasp_sampler.py:1588-1605); world hand points
-    hp = hand_pts_local[None, :, :, None]                         # (1,20,3,1)
-    r3 = rr[:, None]                                              # (F,1,3,3)
-    hp_local = dot3(hp[:, :, 0], r3[..., 0, :], hp[:, :, 1], r3[..., 1, :],
-                    hp[:, :, 2], r3[..., 2, :])                   # (F, 20, 3)
-    hp_world = bc2[:, None, :] + hp_local
-    min_i = torch.argmin(hp_world[..., 2], dim=1)
-    min_pos = hp_world[torch.arange(n_frames, device=dev), min_i]  # (F, 3)
-    nz_safe = torch.where(torch.abs(t_normal[:, 2]) < 1e-9, 1e-9,
-                          t_normal[:, 2])
-    tx = -min_pos[:, 2] * t_normal[:, 0] / nz_safe + min_pos[:, 0]
-    ty = -min_pos[:, 2] * t_normal[:, 1] / nz_safe + min_pos[:, 1]
-    p_table = torch.stack([tx, ty, torch.zeros_like(tx)], dim=1)
-    dis_go_back = norm3(min_pos - p_table) + safety_dis_above_table
-    need_adjust = min_pos[:, 2] < safety_dis_above_table
-    bc_mod = torch.where(need_adjust[:, None],
-                         fma(t_normal, -dis_go_back[:, None], bc2), bc2)
-    x_mod = x_bc2 - torch.where(need_adjust, dis_go_back, 0.0)
+        # table clearance (grasp_sampler.py:1588-1605); world hand points
+        hp = hand_pts_local[None, :, :, None]                     # (1,20,3,1)
+        r3 = rr[:, None]                                          # (F,1,3,3)
+        hp_local = dot3(hp[:, :, 0], r3[..., 0, :], hp[:, :, 1],
+                        r3[..., 1, :], hp[:, :, 2], r3[..., 2, :])  # (F,20,3)
+        hp_world = bc2[:, None, :] + hp_local
+        min_i = torch.argmin(hp_world[..., 2], dim=1)
+        min_pos = hp_world[torch.arange(n_frames, device=dev), min_i]  # (F,3)
+        nz_safe = torch.where(torch.abs(t_normal[:, 2]) < 1e-9, 1e-9,
+                              t_normal[:, 2])
+        tx = -min_pos[:, 2] * t_normal[:, 0] / nz_safe + min_pos[:, 0]
+        ty = -min_pos[:, 2] * t_normal[:, 1] / nz_safe + min_pos[:, 1]
+        p_table = torch.stack([tx, ty, torch.zeros_like(tx)], dim=1)
+        dis_go_back = norm3(min_pos - p_table) + safety_dis_above_table
+        need_adjust = min_pos[:, 2] < safety_dis_above_table
+        bc_mod = torch.where(need_adjust[:, None],
+                             fma(t_normal, -dis_go_back[:, None], bc2), bc2)
+        x_mod = x_bc2 - torch.where(need_adjust, dis_go_back, 0.0)
 
     # final checks (grasp_sampler.py:1607-1614)
-    c3 = ctx.counts(dy_pick, x_mod[:, None], scan_is_y=False)[:, 0]
-    final_ok = ((c3[:, 0] > min_open_points) & (c3[:, 1] == 0)
-                & (c3[:, 2] == 0) & (c3[:, 3] == 0))
-    valid = m_ok_rep & theta_ok & hit & final_ok & above_rep & pre_ok
-    frames = torch.stack([bc2, t_normal, t_major, minor_rep, bc_mod], dim=1)
-    if not debug:
-        return frames, valid, valid[:, None]
-    m1 = above_rep
-    m2 = m1 & m_ok_rep
-    m3 = m2 & (n_ok > 0)
-    m4 = m3 & downward
-    m5 = m4 & hit
-    m6 = m5 & (c3[:, 0] > min_open_points)
-    m7 = m6 & (c3[:, 1] == 0) & (c3[:, 2] == 0) & (c3[:, 3] == 0) & pre_ok
-    return frames, valid, torch.stack([m1, m2, m3, m4, m5, m6, m7], dim=1)
+    with span("gpg.final"):
+        c3 = ctx.counts(dy_pick, x_mod[:, None], scan_is_y=False)[:, 0]
+        final_ok = ((c3[:, 0] > min_open_points) & (c3[:, 1] == 0)
+                    & (c3[:, 2] == 0) & (c3[:, 3] == 0))
+        valid = m_ok_rep & theta_ok & hit & final_ok & above_rep & pre_ok
+        frames = torch.stack([bc2, t_normal, t_major, minor_rep, bc_mod],
+                             dim=1)
+        if not debug:
+            return frames, valid, valid[:, None]
+        m1 = above_rep
+        m2 = m1 & m_ok_rep
+        m3 = m2 & (n_ok > 0)
+        m4 = m3 & downward
+        m5 = m4 & hit
+        m6 = m5 & (c3[:, 0] > min_open_points)
+        m7 = (m6 & (c3[:, 1] == 0) & (c3[:, 2] == 0) & (c3[:, 3] == 0)
+              & pre_ok)
+        return frames, valid, torch.stack([m1, m2, m3, m4, m5, m6, m7],
+                                          dim=1)
 
 
 def gpg_sample_candidates(
@@ -262,101 +276,111 @@ def gpg_sample_candidates(
     p_total = points.shape[0]
     if draws is None:
         draws = Draws(seed, dev)
-    hand_pts_local = torch.as_tensor(hand_points(gripper)[1:], dtype=dtype,
-                                     device=dev)                  # (20, 3)
-    if r_ball is None:
-        r_ball = max(gripper.hand_outer_diameter - gripper.finger_width,
-                     gripper.hand_depth, gripper.hand_height / 2.0)
+    with span("gpg.seeds"):
+        hand_pts_local = torch.as_tensor(hand_points(gripper)[1:],
+                                         dtype=dtype, device=dev)  # (20, 3)
+        if r_ball is None:
+            r_ball = max(gripper.hand_outer_diameter - gripper.finger_width,
+                         gripper.hand_depth, gripper.hand_height / 2.0)
 
-    # seeds above the table (kinect2grasp.py:145-147)
-    above = points[:, 2] > min_points_above_table
-    if seed_bias == "height":
-        # Gaussian-over-height Gumbel-top-k (grasp_sampler.py:1040-1046)
-        zs = points[:, 2]
-        z_lo = torch.where(above, zs, 1e9).amin()
-        z_hi = torch.where(above, zs, -1e9).amax()
-        ok = z_hi > z_lo
-        mid = torch.where(ok, 0.5 * (z_lo + z_hi), 0.0)
-        sigma = torch.where(ok, torch.clamp((z_hi - z_lo) / 4.0, min=1e-6),
-                            1.0)
-        logw = -0.5 * torch.square((zs - mid) / sigma)
-        u = draws.seed_uniform(p_total, 1e-12, 1.0 - 1e-7).to(dev)
-        z = logw - torch.log(-torch.log(u))
-    elif seed_bias == "none":
-        z = draws.seed_uniform(p_total).to(dev)
-    else:
-        raise ValueError(f"unknown seed_bias {seed_bias!r}")
-    z = torch.where(above, z, -torch.inf)
-    seed_idx = torch.sort(z, descending=True, stable=True)[1][
-        :min(num_seeds, p_total)]
-    if seed_idx.shape[0] < num_seeds:
-        seed_idx = torch.cat([seed_idx, seed_idx[-1:].expand(
-            num_seeds - seed_idx.shape[0])])
-    seed_ok = above[seed_idx] & (torch.arange(num_seeds, device=dev)
-                                 < p_total)
+        # seeds above the table (kinect2grasp.py:145-147)
+        above = points[:, 2] > min_points_above_table
+        if seed_bias == "height":
+            # Gaussian-over-height Gumbel-top-k (grasp_sampler.py:1040-1046)
+            zs = points[:, 2]
+            z_lo = torch.where(above, zs, 1e9).amin()
+            z_hi = torch.where(above, zs, -1e9).amax()
+            ok = z_hi > z_lo
+            mid = torch.where(ok, 0.5 * (z_lo + z_hi), 0.0)
+            sigma = torch.where(ok, torch.clamp((z_hi - z_lo) / 4.0,
+                                                min=1e-6), 1.0)
+            logw = -0.5 * torch.square((zs - mid) / sigma)
+            u = draws.seed_uniform(p_total, 1e-12, 1.0 - 1e-7).to(dev)
+            z = logw - torch.log(-torch.log(u))
+        elif seed_bias == "none":
+            z = draws.seed_uniform(p_total).to(dev)
+        else:
+            raise ValueError(f"unknown seed_bias {seed_bias!r}")
+        z = torch.where(above, z, -torch.inf)
+        seed_idx = torch.sort(z, descending=True, stable=True)[1][
+            :min(num_seeds, p_total)]
+        if seed_idx.shape[0] < num_seeds:
+            seed_idx = torch.cat([seed_idx, seed_idx[-1:].expand(
+                num_seeds - seed_idx.shape[0])])
+        seed_ok = above[seed_idx] & (torch.arange(num_seeds, device=dev)
+                                     < p_total)
 
-    # Morton-order the seeds so frame blocks are spatially tight (tile
-    # pruning); outputs are permuted back to the random order at the end
-    morton_perm = torch.argsort(morton_codes(points[seed_idx]), stable=True)
-    unsort = torch.argsort(morton_perm, stable=True)
-    seed_idx = seed_idx[morton_perm]
-    seed_ok = seed_ok[morton_perm]
+        # Morton-order the seeds so frame blocks are spatially tight (tile
+        # pruning); outputs are permuted back to the random order at the
+        # end
+        morton_perm = torch.argsort(morton_codes(points[seed_idx]),
+                                    stable=True)
+        unsort = torch.argsort(morton_perm, stable=True)
+        seed_idx = seed_idx[morton_perm]
+        seed_ok = seed_ok[morton_perm]
 
-    thetas = torch.arange(-range_dtheta, range_dtheta + 1, dtheta_deg,
-                          dtype=dtype, device=dev) / 180.0 * math.pi
-    n_theta = thetas.shape[0]
-    dys = torch.arange(-num_dy, num_dy + 1, dtype=dtype,
-                       device=dev) * gripper.finger_width
-    n_dy = dys.shape[0]
+        thetas = torch.arange(-range_dtheta, range_dtheta + 1, dtheta_deg,
+                              dtype=dtype, device=dev) / 180.0 * math.pi
+        n_theta = thetas.shape[0]
+        dys = torch.arange(-num_dy, num_dy + 1, dtype=dtype,
+                           device=dev) * gripper.finger_width
+        n_dy = dys.shape[0]
 
-    seeds_xyz = points[seed_idx]                                  # (S, 3)
-    if point_frames is not None:
-        seed_frames = point_frames[seed_idx]                      # (S, 3, 3)
-        seed_m_ok = norm3(seed_frames[:, 0]) > 0.5
-        normal, major, minor = seed_frames.unbind(dim=1)
-    else:
-        seed_m_ok, normal, major, minor = _covariance_frames(
-            points, normals, seed_idx, seeds_xyz, min(max_neighbors, p_total),
-            r_ball, camera_pos, normal_k, normal_window, bbox)
+    with span("gpg.local_frames"):
+        seeds_xyz = points[seed_idx]                              # (S, 3)
+        if point_frames is not None:
+            seed_frames = point_frames[seed_idx]                  # (S, 3, 3)
+            seed_m_ok = norm3(seed_frames[:, 0]) > 0.5
+            normal, major, minor = seed_frames.unbind(dim=1)
+        else:
+            seed_m_ok, normal, major, minor = _covariance_frames(
+                points, normals, seed_idx, seeds_xyz,
+                min(max_neighbors, p_total), r_ball, camera_pos, normal_k,
+                normal_window, bbox)
 
-    # (seed, theta) -> F frames, seed-major; rows [t_normal, t_major, minor]
-    rot = _axis_rotations(minor, thetas)                          # (S,T,3,3)
-    t_major = _matvec(rot, major[:, None].expand(-1, n_theta, -1))
-    t_normal = _matvec(rot, normal[:, None].expand(-1, n_theta, -1))
-    rr = torch.stack([t_normal, t_major,
-                      minor[:, None].expand(-1, n_theta, -1)], dim=2)
-    n_frames = num_seeds * n_theta
-    rr = rr.reshape(n_frames, 3, 3)
-    seeds_rep = seeds_xyz.repeat_interleave(n_theta, dim=0)       # (F, 3)
-    bite = float(gripper.init_bite)
-    m_ok_rep = seed_m_ok.repeat_interleave(n_theta)
-    above_rep = seed_ok.repeat_interleave(n_theta)
+    with span("gpg.compact"):
+        # (seed, theta) -> F frames, seed-major; rows [t_normal, t_major,
+        # minor]
+        rot = _axis_rotations(minor, thetas)                      # (S,T,3,3)
+        t_major = _matvec(rot, major[:, None].expand(-1, n_theta, -1))
+        t_normal = _matvec(rot, normal[:, None].expand(-1, n_theta, -1))
+        rr = torch.stack([t_normal, t_major,
+                          minor[:, None].expand(-1, n_theta, -1)], dim=2)
+        n_frames = num_seeds * n_theta
+        rr = rr.reshape(n_frames, 3, 3)
+        seeds_rep = seeds_xyz.repeat_interleave(n_theta, dim=0)   # (F, 3)
+        bite = float(gripper.init_bite)
+        m_ok_rep = seed_m_ok.repeat_interleave(n_theta)
+        above_rep = seed_ok.repeat_interleave(n_theta)
 
-    # hoist the scan-independent validity (the downward guard reduces to
-    # t_normal.z < -0.5) and compact the frame axis: frames that cannot be
-    # valid move behind the others and get no counts on the card. With a
-    # mesh, the active frames go round-robin over the shards (JAX's
-    # two-key sort), so each shard keeps an equal share of the scan work
-    ndev = 1 if mesh is None else mesh.size
-    pre_ok = m_ok_rep & above_rep & (rr[:, 0, 2] < -0.5 + 1e-3)
-    key = (~pre_ok).to(torch.int64)
-    if ndev > 1:
-        ri = torch.where(pre_ok, torch.cumsum(pre_ok, 0) - 1,
-                         torch.cumsum(~pre_ok, 0) - 1)
-        key = (ri % ndev) * 2 + key
-    cperm = torch.argsort(key, stable=True)
-    cunsort = torch.argsort(cperm, stable=True)
-    seeds_rep = seeds_rep[cperm]
-    rr = rr[cperm]
-    m_ok_rep = m_ok_rep[cperm]
-    above_rep = above_rep[cperm]
-    pre_ok = pre_ok[cperm]
+        # hoist the scan-independent validity (the downward guard reduces
+        # to t_normal.z < -0.5) and compact the frame axis: frames that
+        # cannot be valid move behind the others and get no counts on the
+        # card. With a mesh, the active frames go round-robin over the
+        # shards (JAX's two-key sort), so each shard keeps an equal share of
+        # the scan work
+        ndev = 1 if mesh is None else mesh.size
+        pre_ok = m_ok_rep & above_rep & (rr[:, 0, 2] < -0.5 + 1e-3)
+        key = (~pre_ok).to(torch.int64)
+        if ndev > 1:
+            ri = torch.where(pre_ok, torch.cumsum(pre_ok, 0) - 1,
+                             torch.cumsum(~pre_ok, 0) - 1)
+            key = (ri % ndev) * 2 + key
+        cperm = torch.argsort(key, stable=True)
+        cunsort = torch.argsort(cperm, stable=True)
+        seeds_rep = seeds_rep[cperm]
+        rr = rr[cperm]
+        m_ok_rep = m_ok_rep[cperm]
+        above_rep = above_rep[cperm]
+        pre_ok = pre_ok[cperm]
 
-    block = dict(gripper=gripper, boxes_np=panel_box_array(gripper),
-                 hand_pts_local=hand_pts_local, dys=dys, bite=bite,
-                 approach_step=approach_step, approach_steps=approach_steps,
-                 safety_dis_above_table=safety_dis_above_table,
-                 min_open_points=min_open_points, debug=debug)
+        block = dict(gripper=gripper, boxes_np=panel_box_array(gripper),
+                     hand_pts_local=hand_pts_local, dys=dys, bite=bite,
+                     approach_step=approach_step,
+                     approach_steps=approach_steps,
+                     safety_dis_above_table=safety_dis_above_table,
+                     min_open_points=min_open_points, debug=debug)
+
     if mesh is None:
         frames, valid, stages = _frames_block(
             points, seeds_rep, rr, m_ok_rep, above_rep, pre_ok, **block)
@@ -378,18 +402,19 @@ def gpg_sample_candidates(
         frames, valid, stages = (frames[:n_frames], valid[:n_frames],
                                  stages[:n_frames])
 
-    # compaction order -> Morton order -> random seed order
-    frames = frames[cunsort].reshape(num_seeds, n_theta, 5, 3)[unsort]
-    valid = valid[cunsort].reshape(num_seeds, n_theta)[unsort]
-    cands = GpgCandidates(frames.reshape(-1, 5, 3), valid.reshape(-1))
-    if not debug:
-        return cands
-    sums = stages.sum(dim=0)
-    funnel = {"frames": torch.tensor(n_frames, dtype=torch.int32)}
-    for i, name in enumerate(FUNNEL_STAGES[1:]):
-        funnel[name] = sums[i].to(torch.int32)
-    funnel["seed_heights"] = points[seed_idx][unsort][:, 2]
-    return cands, funnel
+    with span("gpg.unsort"):
+        # compaction order -> Morton order -> random seed order
+        frames = frames[cunsort].reshape(num_seeds, n_theta, 5, 3)[unsort]
+        valid = valid[cunsort].reshape(num_seeds, n_theta)[unsort]
+        cands = GpgCandidates(frames.reshape(-1, 5, 3), valid.reshape(-1))
+        if not debug:
+            return cands
+        sums = stages.sum(dim=0)
+        funnel = {"frames": torch.tensor(n_frames, dtype=torch.int32)}
+        for i, name in enumerate(FUNNEL_STAGES[1:]):
+            funnel[name] = sums[i].to(torch.int32)
+        funnel["seed_heights"] = points[seed_idx][unsort][:, 2]
+        return cands, funnel
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,10 @@ a thread of its own (K2 launches once per trunk per shard); every draw is
 made once for the whole padded batch and split (``ShardDraws``), so the
 shards' results, gathered once onto the first device and ranked there, are
 the single-device results.
+
+Spans (``utils.profiling.span``): ``score.candidates`` around a fused call,
+``score.crop``, ``score.forward`` and ``score.rank`` inside it, and
+``score.fetch`` around each device-to-host copy of ``GraspScorer.collect``.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..models.convert import (is_dual_state_dict, load_reference_checkpoint,
                               pointnet_cls_from_state_dict)
 from ..ops.crop import collect_candidate_clouds
 from ..parallel import mesh as pmesh
+from ..utils.profiling import span
 
 
 def _round_up(n: int, m: int) -> int:
@@ -47,7 +52,8 @@ def _to_host(tree):
     if isinstance(tree, torch.Tensor):
         if tree.dtype == torch.bfloat16:     # numpy has no bfloat16
             tree = tree.float()
-        return tree.detach().cpu().numpy()
+        with span("score.fetch"):
+            return tree.detach().cpu().numpy()
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
@@ -103,14 +109,17 @@ def crop_and_score(model, pc, cand_frames, valid_in, hand_depth, width,
                    batch: int | None = None):
     """Crop + resample + forward + vote: (pred, prob, counts, valid).
     ``batch``: the whole batch's candidate count, for a shard."""
-    clouds, counts, valid = collect_candidate_clouds(
-        cand_frames[:, 0], cand_frames[:, 1], cand_frames[:, 2],
-        cand_frames[:, 3], pc, hand_depth, width, draws,
-        num_out=num_points, min_point_limit=min_points,
-        recenter=crop_recenter, batch=batch)
-    valid = valid & valid_in
-    pred, prob, _ = score_cloud_batch(model, clouds, valid, draws,
-                                      num_points=num_points, repeat=repeat)
+    with span("score.crop"):
+        clouds, counts, valid = collect_candidate_clouds(
+            cand_frames[:, 0], cand_frames[:, 1], cand_frames[:, 2],
+            cand_frames[:, 3], pc, hand_depth, width, draws,
+            num_out=num_points, min_point_limit=min_points,
+            recenter=crop_recenter, batch=batch)
+        valid = valid & valid_in
+    with span("score.forward"):
+        pred, prob, _ = score_cloud_batch(model, clouds, valid, draws,
+                                          num_points=num_points,
+                                          repeat=repeat)
     return pred, prob, counts, valid
 
 
@@ -132,10 +141,13 @@ def score_candidates_fused(model, pc, cand_frames, valid_in, hand_depth,
                            crop_recenter: bool = False):
     """The whole per-frame scoring pipeline: crop + resample + forward +
     vote + rank. Returns (pred, prob, counts, valid, good, order)."""
-    return rank_candidates(*crop_and_score(
-        model, pc, cand_frames, valid_in, hand_depth, width, draws,
-        num_points=num_points, repeat=repeat, min_points=min_points,
-        crop_recenter=crop_recenter))
+    with span("score.candidates"):
+        scored = crop_and_score(
+            model, pc, cand_frames, valid_in, hand_depth, width, draws,
+            num_points=num_points, repeat=repeat, min_points=min_points,
+            crop_recenter=crop_recenter)
+        with span("score.rank"):
+            return rank_candidates(*scored)
 
 
 @dataclass

@@ -8,11 +8,11 @@ normals (whole cloud, or lazily in the GPG seed windows) -> GPG candidates
 ``upload_dtype`` and adaptive-bucket logic are kept because results depend
 on them. Neighbor selection is always exact in the port, so the JAX
 config's ``sampler_exact`` switch is accepted and read by nothing. The
-stages carry
-``torch.profiler.record_function`` labels (``frame.upload_voxel``,
-``frame.normals``, ``frame.gpg``, ``frame.score``, ``frame.collect``),
-which cost nothing
-while no profiler runs.
+frame (``frame.process``) and each of its stages (``frame.pad``,
+``frame.upload_voxel``, ``frame.bbox``, ``frame.normals``, ``frame.gpg``,
+``frame.compact``, ``frame.score``, ``frame.collect``, ``frame.finish``)
+carry a ``utils.profiling.span``, a profiler range while a profiler runs
+and nothing otherwise.
 
 ``GraspDetector.warmup`` runs one synthetic frame per size bucket before a
 node goes live: on the card nothing is compiled per shape, but the first
@@ -28,7 +28,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..draws import Draws
 from ..grasping.gripper import Gripper
@@ -36,6 +35,7 @@ from ..grasping.samplers import gpg_sample_candidates
 from ..inference.scorer import GraspScorer
 from ..ops.cloud import (estimate_normals_knn, estimate_normals_knn_window,
                          voxel_downsample_packed)
+from ..utils.profiling import span
 
 
 def remove_table_points(points: np.ndarray, z_thresh: float = 0.005,
@@ -157,8 +157,9 @@ class GraspDetector:
         per-guard rejection table. ``draws`` replaces the frame's random
         numbers (default: ``Draws(seed)`` for the sampler and
         ``Draws(seed + 1)`` for the scorer)."""
-        return self.collect_frame(self.dispatch_frame(
-            points, cam_pos, seed, funnel=funnel, draws=draws))
+        with span("frame.process"):
+            return self.collect_frame(self.dispatch_frame(
+                points, cam_pos, seed, funnel=funnel, draws=draws))
 
     def dispatch_frame(self, points: np.ndarray, cam_pos: np.ndarray,
                        seed: int = 0, _force_bound: bool = False,
@@ -166,18 +167,19 @@ class GraspDetector:
         """Enqueue the frame on the device; pair with ``collect_frame``."""
         cfg = self.cfg
         dev = self.device
-        points = np.asarray(points, np.float32)
-        points_orig = points
-        # pad the RAW cloud to a bucket by repeating the first point (same
-        # voxel -> downsample unchanged)
-        raw_pad = cfg.raw_pad_to or cfg.cloud_pad_to
-        n_raw = len(points)
-        if n_raw > 0:
-            raw_bucket = -(-n_raw // raw_pad) * raw_pad
-            if raw_bucket > n_raw:
-                points = np.concatenate(
-                    [points, np.repeat(points[:1], raw_bucket - n_raw, 0)])
-        with record_function("frame.upload_voxel"):
+        with span("frame.pad"):
+            points = np.asarray(points, np.float32)
+            points_orig = points
+            # pad the RAW cloud to a bucket by repeating the first point
+            # (same voxel -> downsample unchanged)
+            raw_pad = cfg.raw_pad_to or cfg.cloud_pad_to
+            n_raw = len(points)
+            if n_raw > 0:
+                raw_bucket = -(-n_raw // raw_pad) * raw_pad
+                if raw_bucket > n_raw:
+                    points = np.concatenate(
+                        [points, np.repeat(points[:1], raw_bucket - n_raw, 0)])
+        with span("frame.upload_voxel"):
             if cfg.upload_dtype == "float16":
                 pts_up = torch.from_numpy(points.astype(np.float16)).to(dev) \
                     .to(torch.float32)
@@ -186,32 +188,35 @@ class GraspDetector:
             packed, count = voxel_downsample_packed(pts_up,
                                                     n_grid=cfg.n_voxel)
 
-        # size bucket from the RAW count (an upper bound on the voxel
-        # count); the sentinel tail is never a seed, neighbor or crop point
-        bound_bucket = max(-(-max(n_raw, 1) // cfg.cloud_pad_to), 1) \
-            * cfg.cloud_pad_to
-        bucket = bound_bucket
-        if (cfg.adaptive_bucket and not _force_bound
-                and self._last_voxel_count is not None):
-            est = int(self._last_voxel_count * cfg.adaptive_margin) + 1
-            est_bucket = max(-(-est // cfg.cloud_pad_to), 1) \
+        with span("frame.bbox"):
+            # size bucket from the RAW count (an upper bound on the voxel
+            # count); the sentinel tail is never a seed, neighbor or crop
+            # point
+            bound_bucket = max(-(-max(n_raw, 1) // cfg.cloud_pad_to), 1) \
                 * cfg.cloud_pad_to
-            bucket = min(bound_bucket, est_bucket)
-        if bucket <= packed.shape[0]:
-            pts_dev = packed[:bucket]
-        else:
-            pts_dev = torch.cat([packed, torch.full(
-                (bucket - packed.shape[0], 3), -1e6, device=dev)])
+            bucket = bound_bucket
+            if (cfg.adaptive_bucket and not _force_bound
+                    and self._last_voxel_count is not None):
+                est = int(self._last_voxel_count * cfg.adaptive_margin) + 1
+                est_bucket = max(-(-est // cfg.cloud_pad_to), 1) \
+                    * cfg.cloud_pad_to
+                bucket = min(bound_bucket, est_bucket)
+            if bucket <= packed.shape[0]:
+                pts_dev = packed[:bucket]
+            else:
+                pts_dev = torch.cat([packed, torch.full(
+                    (bucket - packed.shape[0], 3), -1e6, device=dev)])
 
-        # camera-consistent normals over the REAL cloud's bbox
-        cam = torch.as_tensor(np.asarray(cam_pos, np.float32), device=dev)
-        finite = pts_dev[:, 0] > -9.9e5
-        lo = torch.where(finite[:, None], pts_dev, 1e9).amin(dim=0)
-        hi = torch.where(finite[:, None], pts_dev, -1e9).amax(dim=0)
-        ok = finite.any()
-        lo = torch.where(ok, lo, 0.0)
-        hi = torch.where(ok, hi, 1.0)
-        with record_function("frame.normals"):
+            # camera-consistent normals over the REAL cloud's bbox
+            cam = torch.as_tensor(np.asarray(cam_pos, np.float32),
+                                  device=dev)
+            finite = pts_dev[:, 0] > -9.9e5
+            lo = torch.where(finite[:, None], pts_dev, 1e9).amin(dim=0)
+            hi = torch.where(finite[:, None], pts_dev, -1e9).amax(dim=0)
+            ok = finite.any()
+            lo = torch.where(ok, lo, 0.0)
+            hi = torch.where(ok, hi, 1.0)
+        with span("frame.normals"):
             if cfg.lazy_normals and cfg.normal_window:
                 normals = None
             elif cfg.normal_window and pts_dev.shape[0] > cfg.normal_window:
@@ -221,7 +226,7 @@ class GraspDetector:
             else:
                 normals = estimate_normals_knn(pts_dev, cam, k=cfg.normal_k)
 
-        with record_function("frame.gpg"):
+        with span("frame.gpg"):
             cand = gpg_sample_candidates(
                 pts_dev, normals, self.gripper,
                 num_seeds=cfg.max_num_samples,
@@ -232,17 +237,19 @@ class GraspDetector:
                 mesh=self.mesh)
         if funnel:
             cand, funnel_dev = cand
-        # compact valid candidates on the device (stable: original order)
-        # into a fixed num_grasps buffer with a validity mask
-        n_valid_dev = cand.valid.sum()
-        order0 = torch.argsort((~cand.valid).to(torch.int8), stable=True)
-        frames = cand.frames[order0[:cfg.num_grasps]]
-        frame_valid = torch.arange(cfg.num_grasps, device=dev) < n_valid_dev
+        with span("frame.compact"):
+            # compact valid candidates on the device (stable: original
+            # order) into a fixed num_grasps buffer with a validity mask
+            n_valid_dev = cand.valid.sum()
+            order0 = torch.argsort((~cand.valid).to(torch.int8), stable=True)
+            frames = cand.frames[order0[:cfg.num_grasps]]
+            frame_valid = (torch.arange(cfg.num_grasps, device=dev)
+                           < n_valid_dev)
 
-        extra = (frames, n_valid_dev, count)
-        if funnel:
-            extra = extra + (funnel_dev,)
-        with record_function("frame.score"):
+            extra = (frames, n_valid_dev, count)
+            if funnel:
+                extra = extra + (funnel_dev,)
+        with span("frame.score"):
             pending = self.scorer.dispatch_candidates(
                 pts_dev, frames, hand_depth=self.gripper.hand_depth,
                 width=self.gripper.open_width, seed=seed + 1,
@@ -255,37 +262,37 @@ class GraspDetector:
         raw-bound bucket."""
         cfg = self.cfg
         pending, pts_dev, bucket, raw_pts, cam_pos, seed, draws = dispatched
-        with record_function("frame.collect"):
+        with span("frame.collect"):
             result, extras = self.scorer.collect(pending)
-        frames_np, n_valid, n_real = extras[:3]
-        funnel = ({k: (int(v) if np.ndim(v) == 0 else np.asarray(v))
-                   for k, v in extras[3].items()}
-                  if len(extras) > 3 else None)
-        n_real = int(n_real)
-        self._last_voxel_count = n_real
-        if n_real > bucket:
-            redo = self.dispatch_frame(raw_pts, cam_pos, seed=seed,
-                                       _force_bound=True,
-                                       funnel=funnel is not None,
-                                       draws=draws)
-            return self.collect_frame(redo)
-        keep = min(cfg.num_grasps, int(n_valid))
-        frames_np = frames_np[:keep]
-        order = result["good_indices"]
-        order = order[order < keep]
-        out = {
-            "grasps": frames_np[order],
-            "scores": result["score"][order],
-            "pred": result["pred"][:keep],
-            "all_frames": frames_np,
-            "all_scores": result["score"][:keep],
-            "counts": result["counts"][:keep],
-            "points": pts_dev[:n_real],
-            "n_valid": int(n_valid),
-        }
-        if funnel is not None:
-            out["funnel"] = funnel
-        return out
+        with span("frame.finish"):
+            frames_np, n_valid, n_real = extras[:3]
+            funnel = ({k: (int(v) if np.ndim(v) == 0 else np.asarray(v))
+                       for k, v in extras[3].items()}
+                      if len(extras) > 3 else None)
+            n_real = int(n_real)
+            self._last_voxel_count = n_real
+            if n_real <= bucket:
+                keep = min(cfg.num_grasps, int(n_valid))
+                frames_np = frames_np[:keep]
+                order = result["good_indices"]
+                order = order[order < keep]
+                out = {
+                    "grasps": frames_np[order],
+                    "scores": result["score"][order],
+                    "pred": result["pred"][:keep],
+                    "all_frames": frames_np,
+                    "all_scores": result["score"][:keep],
+                    "counts": result["counts"][:keep],
+                    "points": pts_dev[:n_real],
+                    "n_valid": int(n_valid),
+                }
+                if funnel is not None:
+                    out["funnel"] = funnel
+                return out
+        redo = self.dispatch_frame(raw_pts, cam_pos, seed=seed,
+                                   _force_bound=True,
+                                   funnel=funnel is not None, draws=draws)
+        return self.collect_frame(redo)
 
     def process_frames(self, frames_iter, cam_pos, start_seed: int = 0):
         """Frame stream with one frame in flight: frame N+1 is dispatched

@@ -31,7 +31,6 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.autograd.profiler import record_function
 
 from ..draws import Draws
 from ..parallel import dist as pdist
@@ -223,11 +222,10 @@ class Trainer:
                 out = self.eval_step(self.state.model, grasps, clouds,
                                      transforms, labels, weights, draws)
             else:
-                with record_function("eval.crop"):
-                    cropped, _, crop_valid = collect_grasp_clouds_batched(
-                        grasps, clouds, transforms, draws,
-                        num_out=cfg.grasp_points_num,
-                        min_point_limit=cfg.min_point_limit)
+                cropped, _, crop_valid = collect_grasp_clouds_batched(
+                    grasps, clouds, transforms, draws,
+                    num_out=cfg.grasp_points_num,
+                    min_point_limit=cfg.min_point_limit)
                 w = weights * crop_valid.float()
                 out = self.eval_step(self.state.model, cropped, labels, w)
             for k_ in tot:

@@ -16,8 +16,10 @@ eval sums are global. With no group a step is the one-device step.
 
 - ``make_fused_train_step``: the closing-region crop
   (``collect_grasp_clouds_batched``), forward, backward and the Adam step in
-  one call, under the ``record_function`` labels ``train.crop``,
-  ``train.fwd_bwd`` and ``train.adam``. ``compute_dtype`` (bfloat16): the
+  one call. Every train step is a ``utils.profiling.span`` ``train.step``
+  holding ``train.crop`` (where it crops), ``train.fwd_bwd`` (itself
+  ``train.forward``, the forward and the loss, then ``train.backward``) and
+  ``train.adam``. ``compute_dtype`` (bfloat16): the
   forward and backward run on cast copies of the inputs and parameters,
   while the master parameters, their gradients, Adam's moments, BatchNorm's
   statistics and the loss stay float32. ``remat``: the forward runs again in
@@ -39,13 +41,13 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
-from torch.autograd.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..inference.gpd_scorer import gpd_features
 from ..parallel.dist import all_reduce_, batch_group, world_size
 from ..ops.crop import (collect_grasp_clouds_batched,
                         collect_grasp_clouds_percloud)
+from ..utils.profiling import span
 
 
 @dataclass
@@ -170,13 +172,14 @@ def _forward(model, x, *, compute_dtype=None, remat=False,
 
 
 def _backward(state: TrainState, loss, group=None):
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    sum_gradients(state.model, group)
+    with span("train.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        sum_gradients(state.model, group)
 
 
 def _adam(state: TrainState):
-    with record_function("train.adam"):
+    with span("train.adam"):
         state.optimizer.step()
         state.scheduler.step()
     state.step += 1
@@ -187,13 +190,15 @@ def make_train_step():
     weights) -> (state, metrics)."""
 
     def train_step(state: TrainState, clouds, labels, weights):
-        state.model.train()
-        with record_function("train.fwd_bwd"):
-            logp = _forward(state.model, clouds)
-            loss = masked_nll_loss(logp, labels, weights)
-            _backward(state, loss)
-        _adam(state)
-        return state, _metrics(loss, logp, labels, weights)
+        with span("train.step"):
+            state.model.train()
+            with span("train.fwd_bwd"):
+                with span("train.forward"):
+                    logp = _forward(state.model, clouds)
+                    loss = masked_nll_loss(logp, labels, weights)
+                _backward(state, loss)
+            _adam(state)
+            return state, _metrics(loss, logp, labels, weights)
 
     return train_step
 
@@ -206,8 +211,7 @@ def make_eval_step(group=None):
     @torch.no_grad()
     def eval_step(model, clouds, labels, weights):
         model.eval()
-        with record_function("eval.forward"):
-            logp = model(clouds)[0]
+        logp = model(clouds)[0]
         return _eval_sums(logp, labels, weights, group)
 
     return eval_step
@@ -233,20 +237,22 @@ def make_fused_train_step(*, num_points: int, min_point_limit: int = 50,
 
     def train_step(state: TrainState, grasps, clouds, transforms, labels,
                    label_weights, draws):
-        with record_function("train.crop"):
-            cropped, _, crop_valid = collect_grasp_clouds_batched(
-                grasps, clouds, transforms, draws, num_out=num_points,
-                min_point_limit=min_point_limit)
-            weights = label_weights * crop_valid.to(label_weights.dtype)
-        state.model.train()
-        with record_function("train.fwd_bwd"), batch_group(group):
-            logp = _forward(state.model, cropped,
-                            compute_dtype=compute_dtype, remat=remat,
-                            fused_maxpool=fused_maxpool)
-            loss = masked_nll_loss(logp, labels, weights, group)
-            _backward(state, loss, group)
-        _adam(state)
-        return state, _metrics(loss, logp, labels, weights, group)
+        with span("train.step"):
+            with span("train.crop"):
+                cropped, _, crop_valid = collect_grasp_clouds_batched(
+                    grasps, clouds, transforms, draws, num_out=num_points,
+                    min_point_limit=min_point_limit)
+                weights = label_weights * crop_valid.to(label_weights.dtype)
+            state.model.train()
+            with span("train.fwd_bwd"), batch_group(group):
+                with span("train.forward"):
+                    logp = _forward(state.model, cropped,
+                                    compute_dtype=compute_dtype, remat=remat,
+                                    fused_maxpool=fused_maxpool)
+                    loss = masked_nll_loss(logp, labels, weights, group)
+                _backward(state, loss, group)
+            _adam(state)
+            return state, _metrics(loss, logp, labels, weights, group)
 
     return train_step
 
@@ -280,12 +286,10 @@ def make_gpd_eval_step(*, num_points: int, project_chann: int = 3,
     @torch.no_grad()
     def eval_step(model, grasps, clouds, transforms, labels, label_weights,
                   draws):
-        with record_function("eval.crop"):
-            feats, crop_valid = features(grasps, clouds, transforms, draws)
+        feats, crop_valid = features(grasps, clouds, transforms, draws)
         weights = label_weights * crop_valid.to(label_weights.dtype)
         model.eval()
-        with record_function("eval.forward"):
-            logp = model(feats)
+        logp = model(feats)
         return _eval_sums(logp, labels, weights, group)
 
     return eval_step
@@ -306,17 +310,19 @@ def make_gpd_train_step(*, num_points: int, project_chann: int = 3,
 
     def train_step(state: TrainState, grasps, clouds, transforms, labels,
                    label_weights, draws):
-        with record_function("train.crop"):
-            with torch.no_grad():
-                feats, crop_valid = features(grasps, clouds, transforms,
-                                             draws)
-            weights = label_weights * crop_valid.to(label_weights.dtype)
-        state.model.train()
-        with record_function("train.fwd_bwd"):
-            logp = state.model(feats, draws)
-            loss = masked_nll_loss(logp, labels, weights, group)
-            _backward(state, loss, group)
-        _adam(state)
-        return state, _metrics(loss, logp, labels, weights, group)
+        with span("train.step"):
+            with span("train.crop"):
+                with torch.no_grad():
+                    feats, crop_valid = features(grasps, clouds, transforms,
+                                                 draws)
+                weights = label_weights * crop_valid.to(label_weights.dtype)
+            state.model.train()
+            with span("train.fwd_bwd"):
+                with span("train.forward"):
+                    logp = state.model(feats, draws)
+                    loss = masked_nll_loss(logp, labels, weights, group)
+                _backward(state, loss, group)
+            _adam(state)
+            return state, _metrics(loss, logp, labels, weights, group)
 
     return train_step
