@@ -274,17 +274,34 @@ Phases, in order; any failure exits non-zero:
    (fp32 and bf16), K1 3 and K2 2 per frame, K3 1 per voxelizer call, and
    K3 within rtol 1e-4 of the dense route (``voxelizer_k3_max_rel_diff``:
    |k3 - dense^2| / max(dense^2, 1e-6 m^2)). Then, in this process
-   (``bench_parity``), the bench's K1 and K2 launch sites on its own
+   (``bench_parity``), the bench's K1, K2 and K4 launch sites on its own
    inputs: the headline scene (512 x 750 over 20,000 points) and its bf16
-   twin through ``score_scene`` (K2 2 launches each), and one frame of the
-   bench's detector on the tabletop (K1 3, K2 2), each recorded launch
-   held to its plain version (K1 equal on the active frames, K2 within
+   twin through ``score_scene`` (K2 2 and K4 2 launches each), and one
+   frame of the bench's detector on the tabletop (K1 3, K2 2, K4 2: 64
+   candidates over a 20,480-point bucket with a sentinel tail), each run
+   again through the plain versions (K4's ``_prefix_plain``) and each
+   recorded K1 and K2 launch held to its plain version (K1 equal on the active frames, K2 within
    1e-4 x (1 + |plain|)); the fp32 scene's pred, counts, valid and good
    equal to its run through the plain versions, its order equal up to
    candidates whose scores agree within 1e-4 and its prob within 1e-4;
    the frame's n_valid, pred and counts equal, its scores within 1e-4.
    The kernels line gains a ``launches_by_path`` entry ``bench`` for each
-   kernel (the bench's totals; K2<512>'s from K2's count by width).
+   kernel (the bench's totals; K2<512>'s from K2's count by width; K4's
+   from the held runs, with ``bench_bf16`` and ``bench_frame``).
+17. K4, the prefix rank-select crop (``crop_kernel_phase``): at the
+   scorer's shape (one 20,000-point cloud, 512 grasps, 750 points out) and
+   the trainer's (128 clouds of 20,000 points, 750 out), K4's points and
+   counts equal to its plain version's bit for bit (``takes`` forced
+   false, the same draws), 2 launches a crop; each timed alone with CUDA
+   events (warm, a fixed shuffle and fixed windows) beside its bound; 2 K4
+   launches per ``score_candidates_fused`` call and per fused train step.
+   ``read_counts`` counts K4 on every path from phase 3 on; the paths
+   held to exact counts hold K4 where its count is known (0 on the
+   voxelizer, the SDF samplers and the prepare stage, 2 a crop in phases
+   16 and 17), and the kernels line records the others (``frame``,
+   ``ros_node``, ``warmup``, ``mesh_frame``, ``workflow_detect``,
+   ``gt_robustness``, ``demo``). The plain routes of phases 10 and 15
+   crop through ``_prefix_plain`` too.
 
 Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
 slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
@@ -297,7 +314,9 @@ max distance, x 32 points x 77 operations, plus a 17-operation reject test
 per (warp, triangle) of each supertile the block needs, or the bytes of its inputs and
 output (printed beside the supertile-granular bound: the needed (block,
 supertile) pairs x
-128 x 136).
+128 x 136). K4: 12 float64 instructions per (grasp, position) pair
+and per output point at 17e12 a second, or its bytes (``k4_bound``),
+whichever takes longer.
 
 TF32 is switched off for torch's matmuls and cuDNN: only K2's own 3xTF32
 products use the tensor cores.
@@ -307,6 +326,7 @@ last line is the contract line {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import json
 import math
@@ -608,11 +628,13 @@ def k3_ptxas():
 
 
 def _kernel_modules():
+    from pointnetgpd_tpu_torch.ops import crop_prefix as k4
     from pointnetgpd_tpu_torch.ops import gpg_counts as k1
     from pointnetgpd_tpu_torch.ops import point_triangle as k3
     from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
 
-    return {"gpg_counts": k1, "pointnet_trunk": k2, "point_triangle": k3}
+    return {"gpg_counts": k1, "pointnet_trunk": k2, "point_triangle": k3,
+            "crop_prefix": k4}
 
 
 def zero_counts():
@@ -622,6 +644,27 @@ def zero_counts():
 
 def read_counts():
     return {name: mod.launches for name, mod in _kernel_modules().items()}
+
+
+def counts_match(got, want):
+    """Whether the counts ``got`` of ``read_counts`` equal ``want`` on the
+    kernels ``want`` names (a path whose K4 count is only recorded leaves
+    ``crop_prefix`` out)."""
+    return all(got[k] == v for k, v in want.items())
+
+
+@contextlib.contextmanager
+def plain_crop():
+    """K4 swapped for its plain version: every prefix crop takes
+    ``ops/crop.py`` ``_prefix_plain``."""
+    from pointnetgpd_tpu_torch.ops import crop_prefix as k4
+
+    takes = k4.takes
+    k4.takes = lambda pc: False
+    try:
+        yield
+    finally:
+        k4.takes = takes
 
 
 def with_plain_k3(fn):
@@ -834,8 +877,9 @@ def voxelizer_phases(torch, card):
               f"sdf_dim=100, sdf_padding=5) {cold_s:.2f} s cold, launches "
               f"{launches}", flush=True)
         if launches != {"gpg_counts": 0, "pointnet_trunk": 0,
-                        "point_triangle": 1}:
-            fail("the voxelizer path must launch K3 once and K1, K2 never")
+                        "point_triangle": 1, "crop_prefix": 0}:
+            fail("the voxelizer path must launch K3 once and K1, K2, K4 "
+                 "never")
         sdf = read_sdf(sdf_path)
         res = float(sdf.resolution)
         data = sdf.data.cpu().numpy()
@@ -1310,8 +1354,9 @@ def training_phases(torch, card, profile, dev="cuda", batch=128,
               f"{[round(v, 4) for v in losses]}; {moved_p} of {n_params} "
               f"parameters and {moved_bn} running statistics changed; "
               f"finite {finite}", flush=True)
-        if launches != {"gpg_counts": 0, "pointnet_trunk": 2 * n_eval,
-                        "point_triangle": 0}:
+        if not counts_match(launches, {"gpg_counts": 0,
+                                       "pointnet_trunk": 2 * n_eval,
+                                       "point_triangle": 0}):
             fail("the eval pass must launch K2 twice per batch, and the "
                  "training path K1 and K3 never")
         if not (finite and np.isfinite(losses).all() and moved_p == n_params
@@ -2066,7 +2111,8 @@ def labeling_phases(torch, card, dev="cuda", attempts=256, torus=TORUS,
         print(f"9c SDF GPG on the torus: launches {launches} over "
               f"{len(samplers)} sampler calls", flush=True)
         if launches != {"gpg_counts": 3 * len(samplers) * (dev != "cpu"),
-                        "pointnet_trunk": 0, "point_triangle": 0}:
+                        "pointnet_trunk": 0, "point_triangle": 0,
+                        "crop_prefix": 0}:
             problems.append("9c: the SDF GPG samplers must launch K1 3 "
                             "times each")
         out["k1_launches"] = launches["gpg_counts"]
@@ -2354,7 +2400,8 @@ def entry_phases(torch, card, dev="cuda", ckpt_dir=None, trained=None,
 
         k1.GpgScanContext._launch, k2._launch = plain1, k2.trunk_reference
         try:
-            yield
+            with plain_crop():
+                yield
         finally:
             k1.GpgScanContext._launch, k2._launch = launch1, launch2
 
@@ -2869,7 +2916,8 @@ def mesh_phases(torch, card, dev="cuda", ckpt=None, k2_1024_ms=None,
         want_n = {"gpg_counts": 3 * mesh.size * on_card,
                   "pointnet_trunk": 2 * mesh.size * on_card,
                   "point_triangle": 0}
-        if (n != want_n or not same or not k1_equal or e_fr > 1e-6
+        if (not counts_match(n, want_n) or not same or not k1_equal
+                or e_fr > 1e-6
                 or e_sc > 1e-6 or e_rk > 1e-6 or len(b["scores"]) < 2
                 or len(rec) != want_n["gpg_counts"]):
             fail(f"12a: the frame on the mesh (lazy_normals={lazy}) "
@@ -3802,7 +3850,8 @@ def examples_phases(torch, card, dev="cuda", wf=None, demo_steps=30,
     def counts_ok(name, got, want):
         print(f"15{name}: launches {got} (want {want} on the card)",
               flush=True)
-        if on_card and got != want:
+        if on_card and not (counts_match(got, want) if isinstance(got, dict)
+                            else got == want):
             problems.append(f"{name}: launches {got}, want {want}")
 
     def plain1(ctx, fx, sc, is_y):
@@ -3816,7 +3865,8 @@ def examples_phases(torch, card, dev="cuda", wf=None, demo_steps=30,
         k2._launch = k2.trunk_reference
         k3._launch = k3.min_point_triangle_dist2_torch
         try:
-            yield
+            with plain_crop():
+                yield
         finally:
             (k1.GpgScanContext._launch, k2._launch, k3._launch) = saved
 
@@ -3901,7 +3951,7 @@ def examples_phases(torch, card, dev="cuda", wf=None, demo_steps=30,
                             "plain route")
         counts_ok("a workflow_prepare (one object)", prep_counts,
                   {"gpg_counts": 0, "pointnet_trunk": 0,
-                   "point_triangle": 1})
+                   "point_triangle": 1, "crop_prefix": 0})
         out["by_path"]["workflow_prepare"] = prep_counts["point_triangle"]
 
         # K2 at the eval stage: the test split again in this process
@@ -4216,7 +4266,8 @@ def bench_parity(torch, card, dev="cuda", scene_sizes=None,
     (``scene_sizes``/``frame_sizes``: the keywords of ``headline_scene`` and
     ``tabletop``, for a CPU rehearsal), each recorded launch held to its
     plain version and each family's output to its run through the plain
-    versions. Returns the problems found."""
+    versions. Returns (the problems found, each held run's launch
+    counts)."""
     import contextlib
 
     from pointnetgpd_tpu_torch import bench
@@ -4230,7 +4281,7 @@ def bench_parity(torch, card, dev="cuda", scene_sizes=None,
     on_card = dev.type == "cuda"
     launch1, launch2 = k1.GpgScanContext._launch, k2._launch
     rec = {"k1": [], "k2": []}
-    problems = []
+    problems, counts = [], {}
 
     def rec1(ctx, fx, sc, is_y):
         rec["k1"].append((ctx, fx.clone(), sc.clone(), is_y))
@@ -4254,14 +4305,16 @@ def bench_parity(torch, card, dev="cuda", scene_sizes=None,
 
     def held(name, fn, want_counts):
         """fn() through the kernels, recorded, and through their plain
-        versions; each recorded launch against its plain version."""
+        versions (K4's: ``_prefix_plain``); each recorded K1 and K2 launch
+        against its plain version."""
         rec["k1"].clear()
         rec["k2"].clear()
         zero_counts()
         with routed(rec1, rec2):
             got = fn()
         n = read_counts()
-        with routed(plain1, k2.trunk_reference):
+        counts[name] = n
+        with routed(plain1, k2.trunk_reference), plain_crop():
             want = fn()
         e1 = e2 = 0.0
         bad = 0
@@ -4311,7 +4364,8 @@ def bench_parity(torch, card, dev="cuda", scene_sizes=None,
     for name, m in (("headline scene", model), ("bf16 scene", m16)):
         got, want = held(name, lambda: bench.score_scene(
             m, pc, cands, valid, Draws(0, dev)), {
-            "gpg_counts": 0, "pointnet_trunk": 2, "point_triangle": 0})
+            "gpg_counts": 0, "pointnet_trunk": 2, "point_triangle": 0,
+            "crop_prefix": 2})
         same, exact, near, e_prob = ranks_agree(got, want)
         print(f"16 {name} ({cands.shape[0]} candidates over "
               f"{pc.shape[0]} points) against the plain route: pred, "
@@ -4330,7 +4384,8 @@ def bench_parity(torch, card, dev="cuda", scene_sizes=None,
                         config=DetectorConfig(cloud_pad_to=bench.FRAME_PAD_TO))
     pts, cam = bench.tabletop(**(frame_sizes or {}))
     got, want = held("frame", lambda: det.process_frame(pts, cam, seed=0), {
-        "gpg_counts": 3, "pointnet_trunk": 2, "point_triangle": 0})
+        "gpg_counts": 3, "pointnet_trunk": 2, "point_triangle": 0,
+        "crop_prefix": 2})
     same = (got["n_valid"] == want["n_valid"]
             and np.array_equal(got["pred"], want["pred"])
             and np.array_equal(got["counts"], want["counts"]))
@@ -4340,7 +4395,153 @@ def bench_parity(torch, card, dev="cuda", scene_sizes=None,
           f"(1e-4; {card})", flush=True)
     if not same or e_score > 1e-4:
         problems.append("frame differs from its plain route")
-    return problems
+    return problems, counts
+
+
+# --------------------------------------------------------------------------
+# Phase 17: K4, the prefix rank-select crop
+
+# float64 instructions a second on the H100 SXM: 34 TFLOP/s counts a fused
+# multiply-add as two operations, and K4 issues separate products and adds
+PEAK_FP64_INSTR = 34e12 / 2
+
+
+def k4_bound(g, p, num_out, per_grasp):
+    """K4's least time on the H100 in ms, with its (bytes, float64
+    instructions): 12 float64 instructions (4 a coordinate) per (grasp,
+    position) pair and per output point; the cloud(s), the shuffle, the
+    frames and boxes read once, the bits and their block prefix written
+    and read again, the draws read, the counts and the output written."""
+    p_pad = -(-p // 128) * 128
+    f64 = 12 * g * (p_pad + num_out)
+    nbytes = ((g if per_grasp else 1) * p * 12 + p * 8 + g * 18 * 4
+              + 2 * g * p_pad // 8 + 2 * g * (p_pad // 128) * 4
+              + g * (num_out + 1) * 8 + g * 8 + g * num_out * 12)
+    return (max(nbytes / PEAK_BYTES, f64 / PEAK_FP64_INSTR) * 1e3, nbytes,
+            f64)
+
+
+def crop_kernel_phase(torch, card, dev="cuda", shapes=None, iters=50,
+                      train_batch=128, cloud=20000):
+    """Phase 17: K4 against its plain version (``takes`` forced false) at
+    the scorer's and the trainer's shapes, bit for bit; each timed alone
+    (CUDA events, warm, a fixed shuffle and fixed windows) beside its bound;
+    K4's launches per ``score_candidates_fused`` call and per fused train
+    step, 2 each. Returns the kernels-line entry."""
+    from pointnetgpd_tpu_torch.draws import Draws
+    from pointnetgpd_tpu_torch.inference.scorer import score_candidates_fused
+    from pointnetgpd_tpu_torch.models.pointnet import PointNetCls
+    from pointnetgpd_tpu_torch.ops import crop as tcrop
+    from pointnetgpd_tpu_torch.ops import crop_prefix as k4
+    from pointnetgpd_tpu_torch.training import train as ttrain
+    from pointnetgpd_tpu_torch.training.data import SyntheticGraspData
+
+    dev = torch.device(dev)
+    # (grasps, points, num_out, one cloud per grasp)
+    shapes = shapes or {"score": (512, 20000, 750, False),
+                        "train": (128, 20000, 750, True)}
+    rs = np.random.RandomState(17)
+    timing, scenes = {}, {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for name, (g, p, n, per_grasp) in shapes.items():
+        pc = rs.uniform(-0.1, 0.1, (g, p, 3) if per_grasp else (p, 3))
+        w = rs.uniform(0.02, 0.2, g)
+        lo = np.stack([np.zeros_like(w), -w / 2, -w / 4], 1)
+        hi = np.stack([np.full_like(w, 0.06), w / 2, w / 4], 1)
+        args = [t(a.astype(np.float32)) for a in (
+            pc, rs.uniform(-0.1, 0.1, (g, 3)),
+            np.linalg.qr(rs.randn(g, 3, 3))[0], lo, hi)]
+        scenes[name] = args
+        n0 = k4.launches
+        got = tcrop._crop_batch_prefix(*args, n, Draws(0, dev))
+        n_k4 = k4.launches - n0
+        with plain_crop():
+            want = tcrop._crop_batch_prefix(*args, n, Draws(0, dev))
+        err = float((got[0] - want[0]).abs().max())
+        equal = (got[1].dtype == want[1].dtype == torch.int64
+                 and got[0].dtype == want[0].dtype
+                 and torch.equal(got[1], want[1])
+                 and torch.equal(got[0].view(torch.int32),
+                                 want[0].view(torch.int32)))
+        c = got[1]
+        clouds = f"{g} clouds" if per_grasp else "one cloud"
+        print(f"17 K4 {name} ({g} grasps, {clouds} of {p} points, {n} "
+              f"out): {n_k4} launches, equal to the plain version bit for "
+              f"bit: {equal}; counts 0: {int((c == 0).sum())}, 1..{n}: "
+              f"{int(((c > 0) & (c <= n)).sum())}, over {n}: "
+              f"{int((c > n).sum())}", flush=True)
+        if n_k4 != 2 or not equal:
+            fail(f"phase 17: K4 at the {name} shape: {n_k4} launches, "
+                 f"equal {equal}")
+        # the crop alone: a fixed shuffle and fixed windows (the count does
+        # not depend on the shuffle)
+        perm = torch.randperm(p, device=dev)
+        fixed = Draws(1, dev).crop_windows(c, n)
+
+        class Fixed:
+            @staticmethod
+            def crop_windows(count, num_out):
+                return fixed
+
+        rest = args[1:]
+        ms = cuda_ms(torch, lambda: k4.crop(args[0], perm, *rest, n, Fixed),
+                     iters)
+        plain_ms = cuda_ms(torch, lambda: tcrop._prefix_plain(
+            args[0], perm, *rest, n, Fixed), max(iters // 5, 2))
+        bound, nbytes, f64 = k4_bound(g, p, n, per_grasp)
+        by = ("float64 instructions" if f64 / PEAK_FP64_INSTR
+              >= nbytes / PEAK_BYTES else "bytes")
+        timing[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "max_abs_err": err,
+                        "bound_by": by, "bytes": nbytes,
+                        "f64_instructions": f64}
+        print(f"17 K4 {name}: {ms:.4f} ms (two launches, the windows' "
+              f"copies between), plain version {plain_ms:.4f} ms; bound "
+              f"{bound:.5f} ms by {by} ({nbytes} bytes, {f64:.4g} float64 "
+              f"instructions), {100 * bound / ms:.2f}% ({card})", flush=True)
+
+    # launches per scorer call and per train step
+    g, p, n, _ = shapes["score"]
+    with torch.device(dev):
+        model = PointNetCls(num_points=n, input_chann=3, k=3).eval()
+    frames = t(rs.randn(g, 4, 3).astype(np.float32))
+    frames[:, 0] = t(rs.uniform(-0.08, 0.08, (g, 3)).astype(np.float32))
+    valid_in = torch.ones(g, dtype=torch.bool, device=dev)
+    n0 = k4.launches
+    score_candidates_fused(model, scenes["score"][0], frames, valid_in, 0.06,
+                           0.08, Draws(2, dev), num_points=n)
+    per_call = k4.launches - n0
+    with torch.device(dev):
+        model = PointNetCls(num_points=shapes["train"][2], input_chann=3,
+                            k=2).train()
+    state = ttrain.init_train_state(model, ttrain.make_optimizer())
+    step = ttrain.make_fused_train_step(num_points=shapes["train"][2])
+    grasps, clouds, transforms, labels, weights = SyntheticGraspData(
+        train_batch, cloud_points=cloud, seed=0).next_batch()
+    n0 = k4.launches
+    step(state, t(grasps), t(clouds), t(transforms), t(labels).long(),
+         t(weights).float(), Draws(3, dev))
+    per_step = k4.launches - n0
+    torch.cuda.synchronize()
+    print(f"17 K4 launches: {per_call} per score_candidates_fused call, "
+          f"{per_step} per fused train step", flush=True)
+    if per_call != 2 or per_step != 2:
+        fail(f"phase 17: K4 launched {per_call} times in a scorer call and "
+             f"{per_step} in a train step, not 2 and 2")
+    return {"name": "crop_prefix", "route": "cuda",
+            "source": "pointnetgpd_tpu_torch/csrc/crop_prefix.cu",
+            "replaces": None,
+            "launches": per_call + per_step,
+            "launches_by_path": {"score": per_call, "train": per_step},
+            "max_abs_err": max(v["max_abs_err"] for v in timing.values()),
+            "ms": timing["score"]["ms"],
+            "plain_ms": timing["score"]["plain_ms"],
+            "bound_ms": timing["score"]["bound_ms"],
+            "bound_by": timing["score"]["bound_by"], "library_ms": None,
+            "by_shape": timing}
 
 
 def main():
@@ -4680,15 +4881,29 @@ def main():
         k3_entry["launches_by_path"]["registration"] = ex_by["registration"]
     # 16. the benchmark program
     bench = bench_phase(card, kind)
-    problems = bench_parity(torch, card)
+    problems, bench_k4 = bench_parity(torch, card)
     if problems:
         fail("phase 16: " + "; ".join(problems))
     k3_entry["launches_by_path"]["bench"] = bench["by_path"]["point_triangle"]
+    # 17. K4, the prefix rank-select crop
+    k4_entry = crop_kernel_phase(torch, card)
     par["k512"]["launches_by_path"]["bench"] = (
         bench["by_path"]["pointnet_trunk_512"])
     study = last["by_path"]["study"]
     mesh_frame = par["by_path"]["mesh_frame"]
     ros = entry["10d run_ros_node pipeline=False"]
+    # K4's launches on the paths above (held to 2 per crop in phase 16)
+    k4_entry["launches_by_path"].update({
+        "bench": bench_k4["headline scene"]["crop_prefix"],
+        "bench_bf16": bench_k4["bf16 scene"]["crop_prefix"],
+        "bench_frame": bench_k4["frame"]["crop_prefix"],
+        "frame": launches["crop_prefix"],
+        "ros_node": ros["crop_prefix"],
+        "warmup": entry["10c warmup"]["crop_prefix"],
+        "mesh_frame": mesh_frame["crop_prefix"],
+        "workflow_detect": ex_by["workflow_detect"]["crop_prefix"],
+        "gt_robustness": ex_by["gt_robustness"]["crop_prefix"],
+        "demo": ex_by["demo"]["crop_prefix"]})
     print(f"kernel launches by path: frame {launches['gpg_counts']} K1 and "
           f"{launches['pointnet_trunk']} K2 (3 frames), training eval "
           f"{train['eval_launches']} K2 (4 eval batches), labeling "
@@ -4774,6 +4989,7 @@ def main():
          "library_ms": timing["k2_library_64x500"]},
         k3_entry,
         par["k512"],
+        k4_entry,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

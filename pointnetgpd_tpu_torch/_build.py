@@ -27,12 +27,13 @@ BUILD_DIR = _HERE / "_build"
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source flags: the panel-count scan must not contract its coordinate
-# arithmetic into other FMAs than the ones it spells out
+# per-source flags: the panel-count scan and the crop must not contract
+# their coordinate arithmetic into other FMAs than the ones they spell out
 SOURCES = {
     "gpg_counts.cu": ["-fmad=false"],
     "pointnet_trunk.cu": [],
     "point_triangle.cu": [],
+    "crop_prefix.cu": ["-fmad=false"],
 }
 
 P, I = ctypes.c_void_p, ctypes.c_int
@@ -47,6 +48,12 @@ SIGNATURES = {
     "pointnet_trunk_launch": [P, I, I, I, P, P, P, P, P, P, P, P, P, I, P],
     # pts, n_blocks, tri_data, sup_data, n_sup, out, stats (or null), stream
     "point_triangle_launch": [P, I, P, P, I, P, P, P],
+    # pc, cloud_stride, perm, P, p_pad, G, centers, rot, box_lo, box_hi,
+    # bits, incl, count, stream
+    "crop_count_launch": [P, I, P, I, I, I, P, P, P, P, P, P, P, P],
+    # pc, cloud_stride, perm, P, p_pad, G, centers, rot, bits, incl, count,
+    # r, start, num_out, out, stream
+    "crop_select_launch": [P, I, P, I, I, I, P, P, P, P, P, P, P, I, P, P],
 }
 
 _LIB = None

@@ -16,7 +16,10 @@ The shared-cloud crops take one of the three exact selection strategies of
 ``_crop_batch``:
 
 - prefix rank-select (G >= 32 candidates, P > 4096 points): one scene
-  shuffle, then the t-th in-region point by rank;
+  shuffle, then the t-th in-region point by rank; on the card the two
+  launches of kernel K4 (``ops/crop_prefix.py``), ``_prefix_plain``
+  elsewhere (the per-sample training crop of
+  ``collect_grasp_clouds_batched`` takes this route at any G and P);
 - two-stage top-k (G < 32, P > 4096): the cloud strided-interleaved into 16
   segments; the JAX package's per-segment top-L followed by a top-k over the
   survivors selects what one stable top-k over the interleaved layout does,
@@ -34,12 +37,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+from . import crop_prefix
 from .fp import dot3, fma, lin3, norm3
 
 _SEG = 16
 _DIRECT_TOPK_MAX = 4096
 _PREFIX_MIN_G = 32
-_BLK = 128
+_BLK = crop_prefix.BLK
 
 
 def _to_frames(pts, centers, rot_rows):
@@ -82,19 +87,42 @@ def _rank_select_indices(mask, count, num_out: int, draws):
     return torch.where((count > 0)[:, None], idx, 0)
 
 
-def _crop_batch_prefix(pc, centers, rot_rows, box_lo, box_hi, num_out, draws):
-    """Shuffle + prefix-sum rank-select over one shared cloud."""
-    p_total = pc.shape[0]
-    perm = draws.crop_perm(p_total).to(pc.device).long()
-    pcs = pc[perm]
-    p_pad = -(-p_total // _BLK) * _BLK
+def _prefix_plain(pc, perm, centers, rot_rows, box_lo, box_hi,
+                  num_out: int, draws):
+    """The prefix crop in plain PyTorch: K4's plain version and the CPU
+    route. pc (P, 3) shared or (G, P, 3) per grasp, taken in the order of
+    the shuffle ``perm`` (P,) and padded to whole blocks with rows far
+    away, outside every box."""
+    shared = pc.dim() == 2
+    p_total = pc.shape[-2]
+    pcs = pc[..., perm, :]
+    p_pad = crop_prefix.padded(p_total)
     if p_pad > p_total:
-        pcs = torch.cat([pcs, torch.full((p_pad - p_total, 3), 1e9,
-                                         dtype=pc.dtype, device=pc.device)])
-    mask = _in_box(_to_frames(pcs[None], centers, rot_rows), box_lo, box_hi)
+        pcs = torch.cat([pcs, torch.full(
+            (*pcs.shape[:-2], p_pad - p_total, 3), crop_prefix.PAD,
+            dtype=pc.dtype, device=pc.device)], dim=-2)
+    mask = _in_box(_to_frames(pcs[None] if shared else pcs, centers,
+                              rot_rows), box_lo, box_hi)
     count = mask.sum(dim=-1)
     idx = _rank_select_indices(mask, count, num_out, draws)
-    return _to_frames(pcs[idx], centers, rot_rows), count
+    sel = pcs[idx] if shared else pcs[
+        torch.arange(pc.shape[0], device=pc.device)[:, None], idx]
+    return _to_frames(sel, centers, rot_rows), count
+
+
+def _crop_batch_prefix(pc, centers, rot_rows, box_lo, box_hi, num_out: int,
+                       draws):
+    """Shuffle + prefix-sum rank-select over one shared cloud pc (P, 3), or
+    grasp g over its own cloud pc[g] (G, P, 3) with one index shuffle shared
+    by the batch: K4 on a CUDA device (``crop_prefix.takes``), else the
+    plain version."""
+    perm = draws.crop_perm(pc.shape[-2]).to(pc.device).long()
+    if crop_prefix.takes(pc):
+        with span("crop.kernel"):
+            return crop_prefix.crop(pc, perm, centers, rot_rows, box_lo,
+                                    box_hi, num_out, draws)
+    return _prefix_plain(pc, perm, centers, rot_rows, box_lo, box_hi,
+                         num_out, draws)
 
 
 def _crop_batch(pc, centers, rot_rows, box_lo, box_hi, num_out: int, draws,
@@ -345,25 +373,6 @@ def collect_grasp_clouds_percloud(grasps, clouds, transforms, draws, *,
     return torch.where(valid[:, None, None], points, 0.0), counts, valid
 
 
-def _crop_batch_prefix_percloud(pc, centers, rot_rows, box_lo, box_hi,
-                                num_out: int, draws):
-    """Grasp g crops its own cloud pc[g] (G, P, 3): one index shuffle shared
-    by the batch, then the prefix rank-select per sample."""
-    g, p_total = pc.shape[0], pc.shape[1]
-    perm = draws.crop_perm(p_total).to(pc.device).long()
-    pcs = pc[:, perm]
-    p_pad = -(-p_total // _BLK) * _BLK
-    if p_pad > p_total:            # pad rows far away: outside every box
-        pcs = torch.cat([pcs, torch.full((g, p_pad - p_total, 3), 1e9,
-                                         dtype=pc.dtype, device=pc.device)],
-                        dim=1)
-    mask = _in_box(_to_frames(pcs, centers, rot_rows), box_lo, box_hi)
-    count = mask.sum(dim=-1)
-    idx = _rank_select_indices(mask, count, num_out, draws)
-    sel = pcs[torch.arange(g, device=pc.device)[:, None], idx]
-    return _to_frames(sel, centers, rot_rows), count
-
-
 def collect_grasp_clouds_batched(grasps, clouds, transforms, draws, *,
                                  num_out: int = 750,
                                  min_point_limit: int = 50):
@@ -372,7 +381,7 @@ def collect_grasp_clouds_batched(grasps, clouds, transforms, draws, *,
     (points (B, num_out, 3) in the gripper frames, counts (B,), valid (B,)
     = counts >= min_point_limit)."""
     centers, rot_rows, box = _training_frames(grasps, transforms)
-    points, counts = _crop_batch_prefix_percloud(
+    points, counts = _crop_batch_prefix(
         clouds, centers, rot_rows, -box, box, num_out, draws)
     valid = counts >= min_point_limit
     return torch.where(valid[:, None, None], points, 0.0), counts, valid
