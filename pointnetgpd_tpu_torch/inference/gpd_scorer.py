@@ -23,6 +23,7 @@ from ..draws import Draws
 from ..ops.cloud import estimate_normals_knn
 from ..ops.crop import collect_candidate_clouds
 from ..ops.projection import gpd_projection_features
+from ..utils.profiling import span
 from .scorer import PendingScore, _round_up, _to_host
 
 CAMERA = (-1.0, 0.0, 0.0)      # along -approach, in the gripper frame
@@ -30,10 +31,12 @@ CAMERA = (-1.0, 0.0, 0.0)      # along -approach, in the gripper frame
 
 def gpd_features(clouds, widths, *, project_chann: int, knn_k: int = 30):
     """Cropped gripper-frame clouds (G, N, 3) and gripper widths (G,) ->
-    (G, 60, 60, C) projection features over k-NN normals."""
+    (G, 60, 60, C) projection features over k-NN normals (spans
+    ``gpd.normals``, then one ``gpd.project`` per projection order)."""
     n = clouds.shape[1]
-    normals = estimate_normals_knn(clouds, torch.tensor(CAMERA), k=knn_k,
-                                   chunk=min(256, n))
+    with span("gpd.normals"):
+        normals = estimate_normals_knn(clouds, torch.tensor(CAMERA), k=knn_k,
+                                       chunk=min(256, n))
     valid = torch.ones(clouds.shape[:2], dtype=torch.bool,
                        device=clouds.device)
     return gpd_projection_features(clouds, normals, valid, widths,

@@ -10,8 +10,10 @@ NHWC images, as the JAX API does, and flattens in the reference's NCHW
 order.
 
 cuDNN runs float32 convolutions in TF32 by default; the convolutions here run
-with TF32 off for their own duration (``torch.backends.cudnn.flags``), and
-no global flag is set.
+with TF32 off for their own duration (``torch.backends.cudnn.flags``), in the
+forward and in the backward alike (``_StrictConv2d``: autograd runs the
+backward later, outside any context the forward entered), and no global
+flag is set.
 """
 
 from __future__ import annotations
@@ -25,6 +27,41 @@ def _no_tf32():
     cudnn = torch.backends.cudnn
     return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                        deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+class _StrictConv2d(torch.autograd.Function):
+    """A 2-D convolution at the given stride, padding, dilation and groups
+    whose forward and backward both run with cuDNN's TF32 off."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (stride, padding, dilation, groups)
+        with _no_tf32():
+            return F.conv2d(x, weight, bias, stride, padding, dilation,
+                            groups)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.conv
+        with _no_tf32():
+            grads = torch.ops.aten.convolution_backward(
+                grad, x, weight, [weight.shape[0]], stride, padding,
+                dilation, False, [0] * len(stride), groups,
+                list(ctx.needs_input_grad[:3]))
+        return (*grads, None, None, None, None)
+
+
+def _conv(x, conv: nn.Conv2d):
+    """``conv`` applied by ``_StrictConv2d``, with the module's own
+    settings."""
+    if isinstance(conv.padding, str) or conv.padding_mode != "zeros":
+        raise NotImplementedError("strict convolutions take numeric zero "
+                                  "padding")
+    return _StrictConv2d.apply(x, conv.weight, conv.bias, list(conv.stride),
+                               list(conv.padding), list(conv.dilation),
+                               conv.groups)
 
 
 class GPDClassifier(nn.Module):
@@ -41,9 +78,8 @@ class GPDClassifier(nn.Module):
         """x (B, 60, 60, C) NHWC -> log_probs (B, 2). In train mode with
         ``dropout``, the keep mask comes from ``draws.dropout_keep``."""
         x = x.permute(0, 3, 1, 2)
-        with _no_tf32():
-            x = F.max_pool2d(self.conv1(x), 2)
-            x = F.max_pool2d(self.conv2(x), 2)
+        x = F.max_pool2d(_conv(x, self.conv1), 2)
+        x = F.max_pool2d(_conv(x, self.conv2), 2)
         x = torch.relu(self.fc1(x.reshape(x.shape[0], -1)))
         if self.dropout and self.training:
             if draws is None:

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+
 _ORDERS = ((0, 1, 2), (1, 2, 0), (0, 2, 1))
 
 
@@ -85,13 +87,15 @@ def gpd_projection_features(points, normals, valid, gripper_width, *,
     """GPD input features (dataset.py:88-120), (B, size, size, C) NHWC: 3
     channels (the normal image of order (0, 1, 2)) or 12 (occupancy and
     normal images over orders (0, 1, 2), (1, 2, 0), (0, 2, 1), in the
-    reference's dstack order)."""
+    reference's dstack order). Each ``project_to_image`` call is a
+    ``gpd.project`` span."""
     if project_chann not in (3, 12):
         raise NotImplementedError("project_chann must be 3 or 12")
     kw = dict(size=size, margin=margin, voxel_point_num=voxel_point_num)
     images = []
     for order in _ORDERS[:1 if project_chann == 3 else 3]:
-        occupy, norm = project_to_image(points, normals, valid,
-                                        gripper_width, order, **kw)
+        with span("gpd.project"):
+            occupy, norm = project_to_image(points, normals, valid,
+                                            gripper_width, order, **kw)
         images += [norm] if project_chann == 3 else [occupy, norm]
     return torch.cat(images, dim=-1)

@@ -29,9 +29,11 @@ eval sums are global. With no group a step is the one-device step.
   ``models/fused_maxpool.py``.
 - ``make_eval_step``: the eval-mode forward under ``no_grad``, where the
   trunks run kernel K2 on the card.
-- The GPD baseline's steps (reference main_1v_gpd.py): per sample the crop,
-  k-NN normals within the crop and projection images, then the CNN; the
-  model has no BatchNorm.
+- The GPD baseline's steps (reference main_1v_gpd.py, main_fullv_gpd.py):
+  per sample the crop, k-NN normals within the crop and projection images,
+  then the CNN; the model has no BatchNorm. Inside ``train.crop`` the
+  features open ``gpd.crop``, ``gpd.normals`` and one ``gpd.project`` per
+  projection order (3 at 12 channels, 1 at 3).
 """
 
 from __future__ import annotations
@@ -261,12 +263,14 @@ def make_gpd_feature_fn(*, num_points: int, project_chann: int = 3,
                         min_point_limit: int = 50, knn_k: int = 30):
     """Per-sample GPD features: (grasps, clouds, transforms, draws) ->
     (features (B, 60, 60, C), crop validity (B,)): the crop of each sample
-    on its own cloud, k-NN normals within the crop, projection images."""
+    on its own cloud (span ``gpd.crop``), k-NN normals within the crop and
+    projection images (``gpd_features``: ``gpd.normals``, ``gpd.project``)."""
 
     def features(grasps, clouds, transforms, draws):
-        pts, _, valid = collect_grasp_clouds_percloud(
-            grasps, clouds, transforms, draws, num_out=num_points,
-            min_point_limit=min_point_limit)
+        with span("gpd.crop"):
+            pts, _, valid = collect_grasp_clouds_percloud(
+                grasps, clouds, transforms, draws, num_out=num_points,
+                min_point_limit=min_point_limit)
         return gpd_features(pts, grasps[:, 6], project_chann=project_chann,
                             knn_k=knn_k), valid
 
