@@ -302,6 +302,22 @@ Phases, in order; any failure exits non-zero:
    ``ros_node``, ``warmup``, ``mesh_frame``, ``workflow_detect``,
    ``gt_robustness``, ``demo``). The plain routes of phases 10 and 15
    crop through ``_prefix_plain`` too.
+18. K5, exact k-NN plane normals (``knn_normals_phase``): at the GPD
+   cell's shape (128 box-face clouds of 1,000 points) and at one
+   20,480-point cloud, k = 30, K5's neighbours equal to ``min_k``'s on the
+   plain distances, its unit normals within 1e-4 rad of
+   ``_normals_plain``'s (same card, same inputs) on every well-posed point
+   (``well_posed``), at most 5% of the points ill posed; each timed alone
+   with CUDA events (warm) beside the plain version and its bound; 1 K5
+   launch per GPD feature call (the train step's) and per ``GPDScorer``
+   call. K5 is counted on every path (``read_counts``): held at 1 in 13d
+   and in 14b's reference_parity frame, at 0 in phase 16 and on the
+   voxelizer and 9c paths, recorded on the study, the workflow's detect
+   stage and the ROS node. The plain sides of phases 10 and 16 take
+   ``_normals_plain`` (``plain_normals``); the reference_parity frames of
+   14b and 15a keep K5 on both sides (a float64 and a float32 plane fit
+   may part a panel count) and hold it alone on the frame's cloud
+   (``hold_k5``).
 
 Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
 slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
@@ -316,7 +332,12 @@ output (printed beside the supertile-granular bound: the needed (block,
 supertile) pairs x
 128 x 136). K4: 12 float64 instructions per (grasp, position) pair
 and per output point at 17e12 a second, or its bytes (``k4_bound``),
-whichever takes longer.
+whichever takes longer. K5: a float32 distance and a compare, 7 float32
+instructions per (query, candidate) pair at 33.5e12 a second, or 6
+conversions between
+float32 and float64 at 16 a clock per SM for each candidate that an exact
+selection admits in a random order, k (1 + ln(P / k)) a query
+(``k5_bound``), whichever takes longer.
 
 TF32 is switched off for torch's matmuls and cuDNN: only K2's own 3xTF32
 products use the tensor cores.
@@ -630,11 +651,12 @@ def k3_ptxas():
 def _kernel_modules():
     from pointnetgpd_tpu_torch.ops import crop_prefix as k4
     from pointnetgpd_tpu_torch.ops import gpg_counts as k1
+    from pointnetgpd_tpu_torch.ops import knn_normals as k5
     from pointnetgpd_tpu_torch.ops import point_triangle as k3
     from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
 
     return {"gpg_counts": k1, "pointnet_trunk": k2, "point_triangle": k3,
-            "crop_prefix": k4}
+            "crop_prefix": k4, "knn_normals": k5}
 
 
 def zero_counts():
@@ -648,8 +670,8 @@ def read_counts():
 
 def counts_match(got, want):
     """Whether the counts ``got`` of ``read_counts`` equal ``want`` on the
-    kernels ``want`` names (a path whose K4 count is only recorded leaves
-    ``crop_prefix`` out)."""
+    kernels ``want`` names (a path whose K4 or K5 count is only recorded
+    leaves ``crop_prefix`` or ``knn_normals`` out)."""
     return all(got[k] == v for k, v in want.items())
 
 
@@ -665,6 +687,20 @@ def plain_crop():
         yield
     finally:
         k4.takes = takes
+
+
+@contextlib.contextmanager
+def plain_normals():
+    """K5 swapped for its plain version: every ``estimate_normals_knn``
+    call takes ``ops/cloud.py`` ``_normals_plain``."""
+    from pointnetgpd_tpu_torch.ops import knn_normals as k5
+
+    takes = k5.takes
+    k5.takes = lambda points: False
+    try:
+        yield
+    finally:
+        k5.takes = takes
 
 
 def with_plain_k3(fn):
@@ -877,9 +913,10 @@ def voxelizer_phases(torch, card):
               f"sdf_dim=100, sdf_padding=5) {cold_s:.2f} s cold, launches "
               f"{launches}", flush=True)
         if launches != {"gpg_counts": 0, "pointnet_trunk": 0,
-                        "point_triangle": 1, "crop_prefix": 0}:
-            fail("the voxelizer path must launch K3 once and K1, K2, K4 "
-                 "never")
+                        "point_triangle": 1, "crop_prefix": 0,
+                        "knn_normals": 0}:
+            fail("the voxelizer path must launch K3 once and K1, K2, K4, "
+                 "K5 never")
         sdf = read_sdf(sdf_path)
         res = float(sdf.resolution)
         data = sdf.data.cpu().numpy()
@@ -2112,7 +2149,7 @@ def labeling_phases(torch, card, dev="cuda", attempts=256, torus=TORUS,
               f"{len(samplers)} sampler calls", flush=True)
         if launches != {"gpg_counts": 3 * len(samplers) * (dev != "cpu"),
                         "pointnet_trunk": 0, "point_triangle": 0,
-                        "crop_prefix": 0}:
+                        "crop_prefix": 0, "knn_normals": 0}:
             problems.append("9c: the SDF GPG samplers must launch K1 3 "
                             "times each")
         out["k1_launches"] = launches["gpg_counts"]
@@ -2400,7 +2437,7 @@ def entry_phases(torch, card, dev="cuda", ckpt_dir=None, trained=None,
 
         k1.GpgScanContext._launch, k2._launch = plain1, k2.trunk_reference
         try:
-            with plain_crop():
+            with plain_crop(), plain_normals():
                 yield
         finally:
             k1.GpgScanContext._launch, k2._launch = launch1, launch2
@@ -3396,10 +3433,13 @@ def database_phases(torch, card, dev="cuda", solid=("torus", TORUS),
         # d. compare_normals' device part on the object's SDF (the mesh
         # cache's .sdf)
         sdf_path = os.path.join(cache, f"{key}.sdf")
+        zero_counts()
         t0 = time.perf_counter()
         idx, pts, n_dev, v_dev, knn_dev = tools.sdf_and_knn_normals(
             sdf_path, n_points=300, seed=0, device=dev)
         wall = time.perf_counter() - t0
+        n_k5 = read_counts()["knn_normals"]
+        out["knn_normals"] = n_k5
         _, pts_c, n_cpu, v_cpu, knn_cpu = tools.sdf_and_knn_normals(
             sdf_path, n_points=300, seed=0, device="cpu")
         cpu_sdf = read_sdf(sdf_path, device="cpu")
@@ -3417,11 +3457,14 @@ def database_phases(torch, card, dev="cuda", solid=("torus", TORUS),
         agree = np.abs(np.sum(n_dev * knn_dev, axis=1))
         print(f"13d compare_normals({len(idx)} surface points): points "
               f"equal {np.array_equal(pts, pts_c)}, KNN normals up to sign "
-              f"min |cos| card vs CPU {cos.min():.7f} (limit 1 - 1e-4), SDF "
-              f"vs KNN |cos| mean {agree.mean():.3f}, {wall * 1e3:.1f} ms "
-              f"({card})", flush=True)
+              f"min |cos| card (K5, {n_k5} launch) vs CPU (its plain "
+              f"version) {cos.min():.7f} (limit 1 - 1e-4), SDF vs KNN |cos| "
+              f"mean {agree.mean():.3f}, {wall * 1e3:.1f} ms ({card})",
+              flush=True)
         if not np.array_equal(pts, pts_c) or cos.min() < 1 - 1e-4:
             problems.append("13d: the KNN normals differ card vs CPU")
+        if n_k5 != int(on_card):
+            problems.append(f"13d: K5 launched {n_k5} times, not once")
 
     if problems:
         fail("phase 13: " + "; ".join(problems))
@@ -3580,7 +3623,8 @@ def last_modules_phases(torch, card, dev="cuda", torus_sdf=None, rows=None,
               (n["gpg_counts"], n["pointnet_trunk"], n["point_triangle"]),
               (3 * n_frames, 2 * n_frames, 0))
     out["by_path"]["study"] = {"gpg_counts": n["gpg_counts"],
-                               "pointnet_trunk": n["pointnet_trunk"]}
+                               "pointnet_trunk": n["pointnet_trunk"],
+                               "knn_normals": n["knn_normals"]}
     summary = nas.summarize(rows_s, yields)
     print(f"14b run_study: {n_scenes} scenes of {raw_points:,} raw points, "
           f"cloud_pad_to {pad}, {n_pts}-point crops, {study_s:.2f} s (a "
@@ -3594,17 +3638,32 @@ def last_modules_phases(torch, card, dev="cuda", torus_sdf=None, rows=None,
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
         base = torch.cuda.memory_allocated(dev)
+    zero_counts()
     t0 = time.perf_counter()
     ex = dets["exact"].process_frame(scene0, cam, seed=0)
     sync()
+    n_exact = read_counts()["knn_normals"]
     peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20 \
         if on_card else None
     print(f"14b exact-KNN config (reference_parity) on scene 0: "
           f"{ex['points'].shape[0]:,} voxels, "
           f"{(time.perf_counter() - t0) * 1e3:.1f} ms, peak memory above "
           f"the frame's start "
-          f"{'not measured' if peak is None else f'{peak:.1f} MiB'} "
-          f"({card})", flush=True)
+          f"{'not measured' if peak is None else f'{peak:.1f} MiB'}, K5 "
+          f"launches {n_exact} ({card})", flush=True)
+    if n_exact != int(on_card):
+        problems.append(f"14b exact-KNN config: K5 launched {n_exact} "
+                        f"times, not once")
+    # the frames below hold K1, K2 and K4 to their plain versions with K5 on
+    # both sides: its float64 plane fit and the plain version's float32 one
+    # may part a panel count. K5 is held alone on the frame's cloud
+    if on_card:
+        bad, stats = hold_k5(torch, ex["points"][None], cam, 1024)
+        print(f"14b exact-KNN frame's cloud ({ex['points'].shape[0]:,} "
+              f"points), K5: {k5_line(stats)}", flush=True)
+        if bad:
+            problems.append(f"14b exact-KNN frame's K5: {', '.join(bad)}")
+    out["by_path"]["exact_frame"] = n_exact
     out["14b"] = dict(ms=timer.summary(), summary=summary, exact_peak_mib=peak)
 
     def plain1(ctx, fx, sc, is_y):
@@ -4035,13 +4094,25 @@ def examples_phases(torch, card, dev="cuda", wf=None, demo_steps=30,
                 and np.array_equal(a["pred"], b["pred"])
                 and np.array_equal(a["counts"], b["counts"])
                 and e_fr <= 1e-5 and e_sc <= 1e-4)
-        print(f"15a: reference_parity frame against both plain versions: "
-              f"n_valid {a['n_valid']} vs {b['n_valid']}, predictions and "
-              f"counts equal {same}, max |frame err| {e_fr:.2e} (1e-5), "
+        print(f"15a: reference_parity frame against the plain versions of "
+              f"K1, K2 and K4: n_valid {a['n_valid']} vs "
+              f"{b['n_valid']}, predictions and counts equal {same}, max |frame err| {e_fr:.2e} (1e-5), "
               f"max |score err| {e_sc:.2e} (1e-4)", flush=True)
         if not same:
             problems.append("the detect stage disagrees with its plain "
                             "route")
+        # K5 ran on both sides (see 14b), and is held alone on the frame's
+        # cloud, the camera 1 m above its mean
+        if on_card:
+            cloud = a["points"]
+            cam_k5 = cloud.mean(0) + torch.tensor([0.0, 0.0, 1.0],
+                                                  device=cloud.device)
+            bad, stats = hold_k5(torch, cloud[None], cam_k5, 1024)
+            print(f"15a: reference_parity frame's cloud "
+                  f"({cloud.shape[0]:,} points), K5: {k5_line(stats)}",
+                  flush=True)
+            if bad:
+                problems.append(f"the detect stage's K5: {', '.join(bad)}")
 
         # b. gt_robustness on a's tree
         zero_counts()
@@ -4305,8 +4376,8 @@ def bench_parity(torch, card, dev="cuda", scene_sizes=None,
 
     def held(name, fn, want_counts):
         """fn() through the kernels, recorded, and through their plain
-        versions (K4's: ``_prefix_plain``); each recorded K1 and K2 launch
-        against its plain version."""
+        versions (K4's: ``_prefix_plain``, K5's: ``_normals_plain``); each
+        recorded K1 and K2 launch against its plain version."""
         rec["k1"].clear()
         rec["k2"].clear()
         zero_counts()
@@ -4314,7 +4385,8 @@ def bench_parity(torch, card, dev="cuda", scene_sizes=None,
             got = fn()
         n = read_counts()
         counts[name] = n
-        with routed(plain1, k2.trunk_reference), plain_crop():
+        with routed(plain1, k2.trunk_reference), plain_crop(), \
+                plain_normals():
             want = fn()
         e1 = e2 = 0.0
         bad = 0
@@ -4365,7 +4437,7 @@ def bench_parity(torch, card, dev="cuda", scene_sizes=None,
         got, want = held(name, lambda: bench.score_scene(
             m, pc, cands, valid, Draws(0, dev)), {
             "gpg_counts": 0, "pointnet_trunk": 2, "point_triangle": 0,
-            "crop_prefix": 2})
+            "crop_prefix": 2, "knn_normals": 0})
         same, exact, near, e_prob = ranks_agree(got, want)
         print(f"16 {name} ({cands.shape[0]} candidates over "
               f"{pc.shape[0]} points) against the plain route: pred, "
@@ -4385,7 +4457,7 @@ def bench_parity(torch, card, dev="cuda", scene_sizes=None,
     pts, cam = bench.tabletop(**(frame_sizes or {}))
     got, want = held("frame", lambda: det.process_frame(pts, cam, seed=0), {
         "gpg_counts": 3, "pointnet_trunk": 2, "point_triangle": 0,
-        "crop_prefix": 2})
+        "crop_prefix": 2, "knn_normals": 0})
     same = (got["n_valid"] == want["n_valid"]
             and np.array_equal(got["pred"], want["pred"])
             and np.array_equal(got["counts"], want["counts"]))
@@ -4541,6 +4613,211 @@ def crop_kernel_phase(torch, card, dev="cuda", shapes=None, iters=50,
             "plain_ms": timing["score"]["plain_ms"],
             "bound_ms": timing["score"]["bound_ms"],
             "bound_by": timing["score"]["bound_by"], "library_ms": None,
+            "by_shape": timing}
+
+
+# --------------------------------------------------------------------------
+# Phase 18: K5, exact k-NN plane normals
+
+# float32 instructions a second on the H100 SXM (67 TFLOP/s counts a fused
+# multiply-add as two operations) and conversions between float32 and
+# float64 a second (16 a clock per SM, 132 SMs at 1.98 GHz)
+PEAK_FP32_INSTR = PEAK_FP32_FLOPS / 2
+PEAK_CVT64 = 16 * 132 * 1.98e9
+K5_PER_PAIR = 7          # a float32 distance (three differences, a
+#                          product, two FMAs) and a compare with the k-th
+K5_CVT_PER_EXACT = 6     # y, z and dot3's two partial sums to float64 and
+#                          the two roundings back
+
+
+def k5_bound(b, p, k=30):
+    """K5's least time on the H100 in ms, with what bounds it and the pair
+    count: a float32 distance and a compare on every (query, candidate)
+    pair, or the conversions of the exact distances of the candidates an
+    exact selection admits in a random order (k (1 + ln(P / k)) a query),
+    whichever takes longer."""
+    pairs = b * p * p
+    admitted = b * p * (min(p, k) + k * max(math.log(p / k), 0.0))
+    filt = pairs * K5_PER_PAIR / PEAK_FP32_INSTR
+    cvt = admitted * K5_CVT_PER_EXACT / PEAK_CVT64
+    return max(filt, cvt) * 1e3, ("float32 instructions" if filt >= cvt
+                                  else "conversions"), pairs
+
+
+def box_face_clouds(rs, b, p):
+    """(b, p, 3) float32: points on the six faces of a box of 4-6 cm sides
+    per cloud, spread by area, turned at random."""
+    clouds = np.zeros((b, p, 3), np.float32)
+    for i in range(b):
+        sides = rs.uniform(0.04, 0.06, 3)
+        area = np.repeat([sides[1] * sides[2], sides[0] * sides[2],
+                          sides[0] * sides[1]], 2)
+        face = rs.choice(6, p, p=area / area.sum())
+        pts = (rs.rand(p, 3) - 0.5) * sides
+        ax = face // 2
+        pts[np.arange(p), ax] = (face % 2 * 2 - 1) * sides[ax] / 2
+        clouds[i] = pts @ np.linalg.qr(rs.randn(3, 3))[0]
+    return clouds
+
+
+K5_ANGLE_TOL = 1e-4      # rad, K5 against its plain version, well posed
+K5_ILL_POSED_MAX = 0.05  # share of points whose normal is not well posed
+
+
+def well_posed(torch, pts, nbr, normals, camera):
+    """(B, P) bool, on the host in float64: the two smallest eigenvalues of
+    each point's neighbour covariance apart by more than 1% of the largest
+    and its normal more than 1e-3 from perpendicular to the camera's ray
+    (tests/test_torch_knn_normals.py ``posed``). Elsewhere float32 rounding
+    may turn K5's float64 plane fit and the plain version's apart."""
+    x = pts.detach().cpu().double()
+    bi = torch.arange(x.shape[0])[:, None, None]
+    q = x[bi, nbr.cpu()]
+    c = q - q.mean(dim=2, keepdim=True)
+    lam = torch.linalg.eigvalsh(c.transpose(-1, -2) @ c)
+    ray = torch.as_tensor(camera, dtype=torch.float64).cpu() - x
+    facing = ((ray * normals.detach().cpu().double()).sum(-1).abs()
+              > 1e-3 * ray.norm(dim=-1))
+    return (lam[..., 1] - lam[..., 0] > 1e-2 * lam[..., 2]) & facing
+
+
+def hold_k5(torch, pts, camera, chunk, k=30):
+    """One launch of K5 on (B, P, 3) float32 ``pts`` against its plain
+    version (``_normals_plain`` in query chunks of ``chunk``) on the same
+    device and inputs: neighbours equal to ``min_k``'s, unit normals within
+    ``K5_ANGLE_TOL`` of the plain version's on every well-posed point, at
+    most ``K5_ILL_POSED_MAX`` of the points ill posed. Returns (what
+    failed, the numbers)."""
+    from pointnetgpd_tpu_torch.ops import cloud as tcloud
+    from pointnetgpd_tpu_torch.ops import knn_normals as k5
+    from pointnetgpd_tpu_torch.ops.fp import sumsq3
+
+    b, p = pts.shape[:2]
+    kk = min(k, p)
+    idx = torch.empty((b, p, kk), dtype=torch.int64, device=pts.device)
+    n0 = k5.launches
+    got = k5.normals(pts, camera, k=k, idx_out=idx)
+    n_k5 = k5.launches - n0
+    want = tcloud._normals_plain(pts, camera, k=k, chunk=chunk)
+    p_sq = sumsq3(pts)
+    # each chunk's k columns copied out: a slice would keep its whole
+    # (chunk, P) sort alive until the end
+    nbr = torch.cat([tcloud.min_k(tcloud.pairwise_d2(
+        pts[:, q0:q0 + chunk], pts, b_sq=p_sq), kk)[1].clone()
+        for q0 in range(0, p, chunk)], dim=1)
+    equal = bool(torch.equal(idx, nbr))
+    a, w = got.double(), want.double()
+    unit = bool(torch.isfinite(a).all()) and float(
+        (a.norm(dim=-1) - 1).abs().max()) <= 1e-6
+    ang = torch.atan2(torch.linalg.cross(a, w).norm(dim=-1),
+                      (a * w).sum(-1)).cpu()
+    ok = well_posed(torch, pts, idx, got, camera)
+    ill = 1.0 - float(ok.float().mean())
+    stats = {"launches": n_k5, "neighbours_equal": equal, "unit": unit,
+             "max_angle_rad": float(ang.max()),
+             "max_angle_well_posed_rad": (float(ang[ok].max())
+                                          if bool(ok.any()) else 0.0),
+             "share_over_1e-4": float((ang > K5_ANGLE_TOL).float().mean()),
+             "share_ill_posed": ill}
+    bad = [what for what, failed in (
+        (f"{n_k5} launches", n_k5 != 1), ("neighbours differ", not equal),
+        ("normals not unit", not unit),
+        (f"well-posed angle {stats['max_angle_well_posed_rad']:.3g} rad",
+         stats["max_angle_well_posed_rad"] >= K5_ANGLE_TOL),
+        (f"{ill:.4f} ill posed", ill > K5_ILL_POSED_MAX)) if failed]
+    if pts.is_cuda:
+        # the plain version's (chunk, P) blocks stay cached otherwise, and
+        # phase 16 hands the card to another process
+        torch.cuda.empty_cache()
+    return bad, stats
+
+
+def k5_line(stats):
+    """The printed summary of ``hold_k5``'s numbers."""
+    return (f"{stats['launches']} launch, neighbours equal to min_k's: "
+            f"{stats['neighbours_equal']}; unit normals {stats['unit']}; "
+            f"against the plain version: largest angle "
+            f"{stats['max_angle_well_posed_rad']:.3g} rad where well posed "
+            f"(limit {K5_ANGLE_TOL:g}), {stats['max_angle_rad']:.3g} rad on "
+            f"any point, {100 * stats['share_over_1e-4']:.3f}% over "
+            f"{K5_ANGLE_TOL:g} rad; {100 * stats['share_ill_posed']:.3f}% "
+            f"ill posed (limit {100 * K5_ILL_POSED_MAX:g}%)")
+
+
+def knn_normals_phase(torch, card, dev="cuda", shapes=None, iters=20):
+    """Phase 18: K5 against its plain version (``_normals_plain`` on the
+    same card) at the GPD cell's shape (128 clouds of 1,000 points) and at
+    one 20,480-point cloud, k = 30: neighbours equal to ``min_k``'s, unit
+    normals within ``K5_ANGLE_TOL`` of the plain version's on every well
+    posed point, at most ``K5_ILL_POSED_MAX`` of the points ill posed; each
+    timed alone (CUDA events, warm) beside the plain version and the bound;
+    K5's launches per GPD feature call (the train step's) and per
+    ``GPDScorer`` call, 1 each. Returns the kernels-line entry."""
+    from pointnetgpd_tpu_torch.draws import Draws
+    from pointnetgpd_tpu_torch.inference.gpd_scorer import CAMERA, GPDScorer
+    from pointnetgpd_tpu_torch.models.gpd import GPDClassifier
+    from pointnetgpd_tpu_torch.ops import cloud as tcloud
+    from pointnetgpd_tpu_torch.ops import knn_normals as k5
+    from pointnetgpd_tpu_torch.training.train import make_gpd_feature_fn
+
+    dev = torch.device(dev)
+    # (clouds, points, the plain version's query chunk)
+    shapes = shapes or {"gpd": (128, 1000, 256), "frame": (1, 20480, 1024)}
+    rs = np.random.RandomState(18)
+    timing = {}
+    for name, (b, p, chunk) in shapes.items():
+        pts = torch.from_numpy(box_face_clouds(rs, b, p)).to(dev)
+        bad, stats = hold_k5(torch, pts, CAMERA, chunk)
+        print(f"18 K5 {name} ({b} clouds of {p} points, k 30): "
+              f"{k5_line(stats)}", flush=True)
+        if bad:
+            fail(f"phase 18: K5 at the {name} shape: {', '.join(bad)}")
+        ms = cuda_ms(torch, lambda: k5.normals(pts, CAMERA, k=30), iters)
+        plain_ms = cuda_ms(torch, lambda: tcloud._normals_plain(
+            pts, CAMERA, k=30, chunk=chunk), 3, warm=1)
+        bound, by, pairs = k5_bound(b, p)
+        timing[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "pairs": pairs, **stats}
+        print(f"18 K5 {name}: {ms:.4f} ms, plain version {plain_ms:.4f} ms;"
+              f" bound {bound:.5f} ms by {by} ({pairs:.4g} pairs), "
+              f"{100 * bound / ms:.2f}% ({card})", flush=True)
+
+    # launches per GPD feature call (the train step's) and per scorer call
+    b, n = 128, 1000
+    clouds = torch.from_numpy(box_face_clouds(rs, b, 20000)).to(dev)
+    grasps = torch.zeros((b, 12), device=dev)
+    grasps[:, :3] = clouds.mean(1)
+    axes = torch.from_numpy(rs.randn(b, 3).astype(np.float32)).to(dev)
+    grasps[:, 3:6] = axes / axes.norm(dim=1, keepdim=True)
+    grasps[:, 6] = 0.08
+    transforms = torch.eye(4, device=dev).expand(b, 4, 4).contiguous()
+    features = make_gpd_feature_fn(num_points=n, project_chann=12)
+    n0 = k5.launches
+    with torch.no_grad():
+        features(grasps, clouds, transforms, Draws(0, dev))
+    per_step = k5.launches - n0
+    with torch.device(dev):
+        scorer = GPDScorer(GPDClassifier(3), device=dev)
+    frames = rs.randn(40, 5, 3).astype(np.float32)
+    frames[:, 0] = clouds[0].mean(0).cpu().numpy()
+    n0 = k5.launches
+    scorer.score_candidates(clouds[0], frames, 0.06, 0.08, seed=1)
+    per_call = k5.launches - n0
+    torch.cuda.synchronize()
+    print(f"18 K5 launches: {per_step} per GPD feature call (the train "
+          f"step's), {per_call} per GPDScorer call", flush=True)
+    if per_step != 1 or per_call != 1:
+        fail(f"phase 18: K5 launched {per_step} times in a GPD feature call "
+             f"and {per_call} in a scorer call, not 1 and 1")
+    return {"name": "knn_normals", "route": "cuda",
+            "source": "pointnetgpd_tpu_torch/csrc/knn_normals.cu",
+            "replaces": None,
+            "launches": per_step + per_call,
+            "launches_by_path": {"gpd_train": per_step, "gpd_score": per_call},
+            "max_angle_rad": max(v["max_angle_rad"] for v in timing.values()),
+            "ms": timing["gpd"]["ms"], "plain_ms": timing["gpd"]["plain_ms"],
+            "bound_ms": timing["gpd"]["bound_ms"],
+            "bound_by": timing["gpd"]["bound_by"], "library_ms": None,
             "by_shape": timing}
 
 
@@ -4887,6 +5164,8 @@ def main():
     k3_entry["launches_by_path"]["bench"] = bench["by_path"]["point_triangle"]
     # 17. K4, the prefix rank-select crop
     k4_entry = crop_kernel_phase(torch, card)
+    # 18. K5, exact k-NN plane normals
+    k5_entry = knn_normals_phase(torch, card)
     par["k512"]["launches_by_path"]["bench"] = (
         bench["by_path"]["pointnet_trunk_512"])
     study = last["by_path"]["study"]
@@ -4904,6 +5183,15 @@ def main():
         "workflow_detect": ex_by["workflow_detect"]["crop_prefix"],
         "gt_robustness": ex_by["gt_robustness"]["crop_prefix"],
         "demo": ex_by["demo"]["crop_prefix"]})
+    # K5's launches on the paths above: held at 1 in 13d and 14b's
+    # reference_parity frame, recorded on the study, the workflow's detect
+    # stage (its reference_parity preset) and the ROS node
+    k5_entry["launches_by_path"].update({
+        "compare_normals": db["knn_normals"],
+        "exact_frame": last["by_path"]["exact_frame"],
+        "study": study["knn_normals"],
+        "workflow_detect": ex_by["workflow_detect"]["knn_normals"],
+        "ros_node": ros["knn_normals"]})
     print(f"kernel launches by path: frame {launches['gpg_counts']} K1 and "
           f"{launches['pointnet_trunk']} K2 (3 frames), training eval "
           f"{train['eval_launches']} K2 (4 eval batches), labeling "
@@ -4990,6 +5278,7 @@ def main():
         k3_entry,
         par["k512"],
         k4_entry,
+        k5_entry,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -27,16 +27,17 @@ BUILD_DIR = _HERE / "_build"
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source flags: the panel-count scan and the crop must not contract
-# their coordinate arithmetic into other FMAs than the ones they spell out
+# per-source flags: the panel-count scan, the crop and the k-NN normals must
+# not contract their arithmetic into other FMAs than the ones they spell out
 SOURCES = {
     "gpg_counts.cu": ["-fmad=false"],
     "pointnet_trunk.cu": [],
     "point_triangle.cu": [],
     "crop_prefix.cu": ["-fmad=false"],
+    "knn_normals.cu": ["-fmad=false"],
 }
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # pts, P, tile_box, T, seeds, rot, fixed, scan, scan_stride, F, ns,
     # active, boxes(host), scan_is_y, out, stream
@@ -54,6 +55,9 @@ SIGNATURES = {
     # pc, cloud_stride, perm, P, p_pad, G, centers, rot, bits, incl, count,
     # r, start, num_out, out, stream
     "crop_select_launch": [P, I, P, I, I, I, P, P, P, P, P, P, P, I, P, P],
+    # pts, B, P, k, cam (or null), cam_x, cam_y, cam_z, out, idx_out (or
+    # null), stream
+    "knn_normals_launch": [P, I, I, I, P, F, F, F, P, P, P],
 }
 
 _LIB = None

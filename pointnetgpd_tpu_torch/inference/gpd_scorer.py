@@ -35,7 +35,7 @@ def gpd_features(clouds, widths, *, project_chann: int, knn_k: int = 30):
     ``gpd.normals``, then one ``gpd.project`` per projection order)."""
     n = clouds.shape[1]
     with span("gpd.normals"):
-        normals = estimate_normals_knn(clouds, torch.tensor(CAMERA), k=knn_k,
+        normals = estimate_normals_knn(clouds, CAMERA, k=knn_k,
                                        chunk=min(256, n))
     valid = torch.ones(clouds.shape[:2], dtype=torch.bool,
                        device=clouds.device)

@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
+from . import knn_normals
 from .fp import dot3, fma, sqrt, sumsq3
 
 
@@ -191,7 +193,18 @@ def estimate_normals_knn(points, camera_pos, *, k: int = 30,
                          chunk: int = 1024, exact: bool = False):
     """Per-point normals by exact k-NN plane fitting, flipped toward the
     camera. points (P, 3), or (B, P, 3) for B clouds at once; camera_pos
-    (3,). Query chunks bound memory. ``exact``: a no-op (see ``min_k``)."""
+    (3,). On a CUDA device one launch of K5 (``ops/knn_normals.py``, span
+    ``normals.kernel``); on the CPU ``_normals_plain``, in query chunks of
+    ``chunk`` that bound memory. ``exact``: a no-op (see ``min_k``)."""
+    if knn_normals.takes(points):
+        with span("normals.kernel"):
+            return knn_normals.normals(points, camera_pos, k=k)
+    return _normals_plain(points, camera_pos, k=k, chunk=chunk)
+
+
+def _normals_plain(points, camera_pos, *, k: int = 30, chunk: int = 1024):
+    """K5's plain version: ``pairwise_d2`` rows of ``chunk`` queries,
+    ``min_k``, ``_plane_normals`` and ``_orient``."""
     p_total = points.shape[-2]
     k = min(k, p_total)
     if k == 0:
