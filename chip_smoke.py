@@ -3,9 +3,8 @@ grasp-detection frame and its entry points, the mesh -> SDF voxelizer
 (object preparation), the trainer, dataset labeling, the RGB-D -> cloud
 path, data and tensor parallelism, the object database with its users, the
 last modules (contact surface windows, the normal-approximation study, the
-training-parity experiment, the profiler), the drivers of
-``pointnetgpd_tpu_torch/examples/`` and the benchmark program
-``python -m pointnetgpd_tpu_torch.bench``.
+training-parity experiment, the profiler) and the drivers of
+``pointnetgpd_tpu_torch/examples/``.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -20,8 +19,8 @@ Phases, in order; any failure exits non-zero:
    K3's registers, shared memory, stack and spills from ptxas and fail on
    any local memory;
 3. K1 (GPG panel-count scan) against its plain version on the three scans of
-   one frame of the 18k-point synthetic tabletop (the benchmark scene of
-   bench.py, rebuilt here), bucketed at cloud_pad_to=4096: exact equality
+   one frame of the 18k-point synthetic tabletop (``tabletop``, the frame
+   scene of the root bench.py), bucketed at cloud_pad_to=4096: exact equality
    on the active frames; then on that frame's cloud and first 256 frames
    with 32 unsorted and 1 shift, all frames active, and an empty cloud;
 4. K2 (fused PointNet trunk, tensor cores in 3xTF32) against its plain
@@ -94,7 +93,8 @@ Phases, in order; any failure exits non-zero:
    or of the draws (``nudged_sdfs``); at most 10% of the lanes. Each
    Ferrari-Canny metric is also held on equal rows (``hold_metric``), and
    the force-only one to a float64 qhull witness (``qhull_eps``);
-   a. ``bench.py``'s labeling cell: a sphere SDF of dim 48, 256 antipodal
+   a. the root bench.py's labeling round (``sphere_sdf_data``,
+      ``LABEL_SPHERE``): a sphere SDF of dim 48, 256 antipodal
       attempts with 48 line samples at mu 2.0, the friction ladder and
       the 6-D epsilon; labeled grasps/s for each (CUDA events, 5 and 3
       warm rounds);
@@ -266,28 +266,22 @@ Phases, in order; any failure exits non-zero:
    (K3, one object counted here), ``workflow_eval`` (K2),
    ``workflow_detect``, ``gt_robustness`` and ``demo`` (K1, K2; K3 for the
    demo), and ``registration`` (K3) where it ran.
-16. the benchmark program (``bench_phase``): ``python -m
-   pointnetgpd_tpu_torch.bench`` in a fresh process at its own sizes (the
-   JAX ``bench.py``'s), its last line read. It must carry no ``error`` and
-   no ``partial``, a finite positive headline and every family's numbers
-   finite; ``extras.device`` must name this card; K2 2 launches per scene
-   (fp32 and bf16), K1 3 and K2 2 per frame, K3 1 per voxelizer call, and
-   K3 within rtol 1e-4 of the dense route (``voxelizer_k3_max_rel_diff``:
-   |k3 - dense^2| / max(dense^2, 1e-6 m^2)). Then, in this process
-   (``bench_parity``), the bench's K1, K2 and K4 launch sites on its own
-   inputs: the headline scene (512 x 750 over 20,000 points) and its bf16
-   twin through ``score_scene`` (K2 2 and K4 2 launches each), and one
-   frame of the bench's detector on the tabletop (K1 3, K2 2, K4 2: 64
-   candidates over a 20,480-point bucket with a sentinel tail), each run
-   again through the plain versions (K4's ``_prefix_plain``) and each
-   recorded K1 and K2 launch held to its plain version (K1 equal on the active frames, K2 within
-   1e-4 x (1 + |plain|)); the fp32 scene's pred, counts, valid and good
-   equal to its run through the plain versions, its order equal up to
-   candidates whose scores agree within 1e-4 and its prob within 1e-4;
-   the frame's n_valid, pred and counts equal, its scores within 1e-4.
-   The kernels line gains a ``launches_by_path`` entry ``bench`` for each
-   kernel (the bench's totals; K2<512>'s from K2's count by width; K4's
-   from the held runs, with ``bench_bf16`` and ``bench_frame``).
+16. the scorer scene and the frame against the plain versions
+   (``scene_parity``), K1's, K2's and K4's launch sites on inputs of the
+   root bench.py's sizes: the 512 x 750 scene over 20,000 points
+   (``headline_scene``) with a seeded 3-class model and its bf16 twin
+   through ``score_candidates_fused`` (K2 2 and K4 2 launches each), and
+   one frame of an 18k-point tabletop (K1 3, K2 2, K4 2: 64 candidates
+   over a 20,480-point bucket with a sentinel tail), each run again
+   through the plain versions (K4's ``_prefix_plain``) and each recorded
+   K1 and K2 launch held to its plain version (K1 equal on the active
+   frames, K2 within 1e-4 x (1 + |plain|)); the fp32 scene's pred,
+   counts, valid and good equal to its run through the plain versions,
+   its order equal up to candidates whose scores agree within 1e-4 and
+   its prob within 1e-4; the frame's n_valid, pred and counts equal, its
+   scores within 1e-4. The kernels line gains ``launches_by_path``
+   entries ``scene``, ``scene_bf16`` and ``scene_frame`` (K2, K4; K1 for
+   the frame).
 17. K4, the prefix rank-select crop (``crop_kernel_phase``): at the
    scorer's shape (one 20,000-point cloud, 512 grasps, 750 points out) and
    the trainer's (128 clouds of 20,000 points, 750 out), K4's points and
@@ -739,6 +733,65 @@ def box_mesh(lo, hi):
                   [0, 4, 5], [0, 5, 1], [2, 3, 7], [2, 7, 6],
                   [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]], np.int32)
     return v, f
+
+
+# the root bench.py's scenes and sizes: the scorer scene, the frame and the
+# labeling round
+NUM_POINTS = 750
+LABEL_SPHERE = (48, 0.0025, 0.045)       # dim, resolution, radius
+FRAME_FACE_POINTS = 2000                 # 3 boxes x 3 faces: 18,000 points
+FRAME_PAD_TO = 4096
+FRAME_NUM_POINTS = 500
+
+
+def headline_scene(scene_points=20000, n_candidates=512):
+    """(pc (P, 3), cands (G, 5, 3)) float32: the scorer scene, unit-axis
+    frames over a uniform box of points."""
+    rs = np.random.RandomState(0)
+    pc = (rs.rand(scene_points, 3) * [0.08, 0.06, 0.05]).astype(np.float32)
+    centers = (rs.rand(n_candidates, 3) * [0.08, 0.06, 0.05]).astype(
+        np.float32)
+    centers[:, 0] -= 0.03
+    cands = np.zeros((n_candidates, 5, 3), np.float32)
+    cands[:, 0] = centers
+    cands[:, 1] = [1, 0, 0]
+    cands[:, 2] = [0, 1, 0]
+    cands[:, 3] = [0, 0, 1]
+    return pc, cands
+
+
+def seeded_model(k, seed, device, num_points=NUM_POINTS):
+    """A PointNetCls with random weights from torch's generator seeded with
+    ``seed`` (the global generator's state is put back)."""
+    import torch
+
+    from pointnetgpd_tpu_torch.models.pointnet import PointNetCls
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = PointNetCls(num_points=num_points, input_chann=3, k=k)
+    return model.to(device)
+
+
+def sphere_sdf_data(dim, res, r):
+    """(data (dim, dim, dim), origin): a sphere's SDF on a centred grid."""
+    origin = -res * (dim - 1) / 2 * np.ones(3)
+    ii, jj, kk = np.meshgrid(*(np.arange(dim),) * 3, indexing="ij")
+    grid_pts = origin + res * np.stack([ii, jj, kk], axis=-1)
+    return np.linalg.norm(grid_pts, axis=-1) - r, origin
+
+
+def tabletop(face_points=FRAME_FACE_POINTS):
+    """(points, cam): a segmented tabletop, three boxes over ~0.6 m."""
+    rs = np.random.RandomState(0)
+    objs = []
+    for cx, cy in ((-0.25, -0.15), (0.2, 0.25), (0.05, -0.3)):
+        n = face_points
+        top = rs.rand(n, 3) * [0.06, 0.06, 0] + [cx, cy, 0.08]
+        front = rs.rand(n, 3) * [0.06, 0, 0.06] + [cx, cy, 0.02]
+        side = rs.rand(n, 3) * [0, 0.06, 0.06] + [cx + 0.06, cy, 0.02]
+        objs.append(np.concatenate([top, front, side]).astype(np.float32))
+    return np.concatenate(objs), np.array([1.0, 1.0, 1.2], np.float32)
 
 
 def torus_sdf(points, big_r, small_r):
@@ -1891,8 +1944,7 @@ def labeling_phases(torch, card, dev="cuda", attempts=256, torus=TORUS,
         return (make_sdf(data, origin, res, device=dev),
                 make_sdf(data, origin, res, device="cpu"))
 
-    # a. bench.py's labeling cell at its own sizes
-    from pointnetgpd_tpu_torch.bench import LABEL_SPHERE, sphere_sdf_data
+    # a. the root bench.py's labeling round at its own sizes
 
     data, origin = sphere_sdf_data(*LABEL_SPHERE)
     sph_card, sph_cpu = both(data, origin, LABEL_SPHERE[1])
@@ -2337,7 +2389,6 @@ def warmup_child(mode, dev, pad, max_points):
     sys.path.insert(0, HERE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from pointnetgpd_tpu_torch.bench import tabletop
     from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
     from pointnetgpd_tpu_torch.ops import gpg_counts as k1
     from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
@@ -2406,7 +2457,6 @@ def entry_phases(torch, card, dev="cuda", ckpt_dir=None, trained=None,
     import io
     import tempfile
 
-    from pointnetgpd_tpu_torch.bench import tabletop
     from pointnetgpd_tpu_torch.cli import infer
     from pointnetgpd_tpu_torch.draws import Draws
     from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
@@ -2859,7 +2909,6 @@ def mesh_phases(torch, card, dev="cuda", ckpt=None, k2_1024_ms=None,
     path and the 512-row instance's entry of the kernels line."""
     import copy
 
-    from pointnetgpd_tpu_torch.bench import tabletop
     from pointnetgpd_tpu_torch.draws import Draws
     from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
     from pointnetgpd_tpu_torch.models.pointnet import PointNetCls
@@ -4253,97 +4302,19 @@ def examples_phases(torch, card, dev="cuda", wf=None, demo_steps=30,
     return out
 
 
-# the bench's numbers that phase 16 reads, each finite and positive
-BENCH_FAMILIES = (
-    "matmul_anchor_8192_ms", "matmul_anchor_tflops",
-    "scene_latency_ms_512_candidates", "bf16_candidates_per_sec",
-    "train_samples_per_sec_per_chip_750pt_b128",
-    "train_bf16_samples_per_sec_per_chip", "labeled_grasps_per_sec",
-    "labeled_grasps_per_sec_6d", "voxelizer_pallas_ms_100cube_8192tri",
-    "voxelizer_pallas_speedup_vs_xla", "voxelizer_dense_ms",
-    "online_frame_ms_18k_tabletop_150_seeds", "online_frame_pipelined_ms")
-# ... and the launch counts it must find
-BENCH_LAUNCHES = {"k2_launches_per_scene": 2,
-                  "k2_launches_per_scene_bf16": 2,
-                  "online_frame_k1_launches_per_frame": 3,
-                  "online_frame_k2_launches_per_frame": 2,
-                  "voxelizer_k3_launches_per_call": 1}
-
-
-def bench_phase(card, kind, timeout_s=600):
-    """Phase 16: the benchmark program in a fresh process, its last line
-    held to the contract (see the module docstring). Returns its launch
-    totals and its line."""
-    env = dict(os.environ, BENCH_DEADLINE_S=str(timeout_s - 60))
-    env.pop("BENCH_ALLOW_CPU", None)
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [sys.executable, "-m", "pointnetgpd_tpu_torch.bench"], cwd=HERE,
-            env=env, capture_output=True, text=True, timeout=timeout_s)
-    except subprocess.TimeoutExpired:
-        fail(f"phase 16: the bench ran past {timeout_s} s")
-    wall = time.perf_counter() - t0
-    lines = proc.stdout.strip().splitlines()
-    try:
-        line = json.loads(lines[-1])
-    except (IndexError, ValueError):
-        fail(f"phase 16: exit {proc.returncode}, no JSON last line; stderr "
-             f"{proc.stderr[-2000:]}")
-    ex = line.get("extras", {})
-    problems = []
-    if proc.returncode != 0 or len(lines) != 1:
-        problems.append(f"exit {proc.returncode}, {len(lines)} lines")
-    if "error" in line:
-        problems.append(f"error: {line['error']}")
-    for key in ("partial", "family_errors"):
-        if key in ex:
-            problems.append(f"{key}: {ex[key]}")
-    value = line.get("value")
-    if not (isinstance(value, (int, float)) and math.isfinite(value)
-            and value > 0):
-        problems.append(f"headline {value}")
-    for key in BENCH_FAMILIES:
-        v = ex.get(key)
-        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
-            problems.append(f"{key} = {v}")
-    if kind not in str(ex.get("device")):
-        problems.append(f"device {ex.get('device')!r} does not name {kind}")
-    for key, want in BENCH_LAUNCHES.items():
-        if ex.get(key) != want:
-            problems.append(f"{key} = {ex.get(key)}, expected {want}")
-    rel = ex.get("voxelizer_k3_max_rel_diff")
-    if not (isinstance(rel, float) and rel <= K3_TOL[0]):
-        problems.append(f"K3 against the dense route: {rel} (rtol 1e-4)")
-    print(f"16 bench ({card}): exit {proc.returncode} in {wall:.1f} s, "
-          f"device {ex.get('device')!r}; {value} candidates/s "
-          f"(512 x 750 over 20,000 points)", flush=True)
-    for key in BENCH_FAMILIES + tuple(BENCH_LAUNCHES) + (
-            "matmul_anchor_fp32_bound_ms", "voxelizer_k3_max_rel_diff",
-            "launches"):
-        print(f"  {key}: {ex.get(key)} ({card})")
-    for name, ms in ex.get("rep_ms", {}).items():
-        print(f"  rep_ms {name}: {ms} ({card})")
-    print(f"  sizes {ex.get('sizes')}", flush=True)
-    if problems:
-        print(proc.stderr[-3000:], flush=True)
-        fail("phase 16: " + "; ".join(problems))
-    return {"by_path": ex["launches"], "seconds": wall, "line": line}
-
-
-def bench_parity(torch, card, dev="cuda", scene_sizes=None,
+def scene_parity(torch, card, dev="cuda", scene_sizes=None,
                  frame_sizes=None):
-    """Phase 16, in this process: the bench's launch sites on its own inputs
-    (``scene_sizes``/``frame_sizes``: the keywords of ``headline_scene`` and
-    ``tabletop``, for a CPU rehearsal), each recorded launch held to its
-    plain version and each family's output to its run through the plain
-    versions. Returns (the problems found, each held run's launch
+    """Phase 16: K1's, K2's and K4's launch sites on the scorer scene and
+    the frame (``scene_sizes``/``frame_sizes``: the keywords of
+    ``headline_scene`` and ``tabletop``, for a CPU rehearsal), each recorded
+    launch held to its plain version and each output to its run through
+    the plain versions. Returns (the problems found, each held run's launch
     counts)."""
     import contextlib
 
-    from pointnetgpd_tpu_torch import bench
     from pointnetgpd_tpu_torch.draws import Draws
-    from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
+    from pointnetgpd_tpu_torch.inference.scorer import (
+        GraspScorer, score_candidates_fused)
     from pointnetgpd_tpu_torch.ops import gpg_counts as k1
     from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
     from pointnetgpd_tpu_torch.robot.node import DetectorConfig, GraspDetector
@@ -4425,17 +4396,18 @@ def bench_parity(torch, card, dev="cuda", scene_sizes=None,
                 float((prob - want[1]).abs().max()))
 
     # the headline scene and its bf16 twin
-    pc_np, cands_np = bench.headline_scene(**(scene_sizes or {}))
+    pc_np, cands_np = headline_scene(**(scene_sizes or {}))
     pc = torch.from_numpy(pc_np).to(dev)
     cands = torch.from_numpy(cands_np).to(dev)
     valid = torch.ones((cands.shape[0],), dtype=torch.bool, device=dev)
-    model = bench.seeded_model(3, 0, dev).eval()
-    m16 = GraspScorer(model=bench.seeded_model(3, 0, dev).eval(), k=3,
-                      num_points=bench.NUM_POINTS, device=dev).as_dtype(
+    model = seeded_model(3, 0, dev).eval()
+    m16 = GraspScorer(model=seeded_model(3, 0, dev).eval(), k=3,
+                      num_points=NUM_POINTS, device=dev).as_dtype(
         torch.bfloat16).model
-    for name, m in (("headline scene", model), ("bf16 scene", m16)):
-        got, want = held(name, lambda: bench.score_scene(
-            m, pc, cands, valid, Draws(0, dev)), {
+    for name, m in (("scene", model), ("scene_bf16", m16)):
+        got, want = held(name, lambda: score_candidates_fused(
+            m, pc, cands, valid, 0.06, 0.08, Draws(0, dev),
+            num_points=NUM_POINTS, repeat=1, min_points=10), {
             "gpg_counts": 0, "pointnet_trunk": 2, "point_triangle": 0,
             "crop_prefix": 2, "knn_normals": 0})
         same, exact, near, e_prob = ranks_agree(got, want)
@@ -4449,22 +4421,22 @@ def bench_parity(torch, card, dev="cuda", scene_sizes=None,
         if m is model and not (same and near and e_prob <= K2_TOL):
             problems.append(f"{name} differs from its plain route")
 
-    # one frame of the online family, on the bench's detector
+    # one frame of the online path
     det = GraspDetector(GraspScorer(model=model, k=3,
-                                    num_points=bench.FRAME_NUM_POINTS,
-                                    device=dev),
-                        config=DetectorConfig(cloud_pad_to=bench.FRAME_PAD_TO))
-    pts, cam = bench.tabletop(**(frame_sizes or {}))
-    got, want = held("frame", lambda: det.process_frame(pts, cam, seed=0), {
+                                    num_points=FRAME_NUM_POINTS, device=dev),
+                        config=DetectorConfig(cloud_pad_to=FRAME_PAD_TO))
+    pts, cam = tabletop(**(frame_sizes or {}))
+    got, want = held("scene_frame", lambda: det.process_frame(pts, cam,
+                                                               seed=0), {
         "gpg_counts": 3, "pointnet_trunk": 2, "point_triangle": 0,
         "crop_prefix": 2, "knn_normals": 0})
     same = (got["n_valid"] == want["n_valid"]
             and np.array_equal(got["pred"], want["pred"])
             and np.array_equal(got["counts"], want["counts"]))
     e_score = float(np.abs(got["all_scores"] - want["all_scores"]).max())
-    print(f"16 frame ({len(pts)} points) against the plain route: n_valid, "
-          f"pred and counts equal {same}; max |score err| {e_score:.2e} "
-          f"(1e-4; {card})", flush=True)
+    print(f"16 scene_frame ({len(pts)} points) against the plain route: "
+          f"n_valid, pred and counts equal {same}; max |score err| "
+          f"{e_score:.2e} (1e-4; {card})", flush=True)
     if not same or e_score > 1e-4:
         problems.append("frame differs from its plain route")
     return problems, counts
@@ -4850,7 +4822,6 @@ def main():
     sass_check(_build.build())
     k3_ptxas()
 
-    from pointnetgpd_tpu_torch.bench import tabletop
     from pointnetgpd_tpu_torch.inference.scorer import GraspScorer
     from pointnetgpd_tpu_torch.ops import gpg_counts as k1
     from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
@@ -5156,26 +5127,20 @@ def main():
     k3_entry["launches_by_path"]["demo"] = ex_by["demo"]["point_triangle"]
     if "registration" in ex_by:
         k3_entry["launches_by_path"]["registration"] = ex_by["registration"]
-    # 16. the benchmark program
-    bench = bench_phase(card, kind)
-    problems, bench_k4 = bench_parity(torch, card)
+    # 16. the scorer scene and the frame against the plain versions
+    problems, scene = scene_parity(torch, card)
     if problems:
         fail("phase 16: " + "; ".join(problems))
-    k3_entry["launches_by_path"]["bench"] = bench["by_path"]["point_triangle"]
     # 17. K4, the prefix rank-select crop
     k4_entry = crop_kernel_phase(torch, card)
     # 18. K5, exact k-NN plane normals
     k5_entry = knn_normals_phase(torch, card)
-    par["k512"]["launches_by_path"]["bench"] = (
-        bench["by_path"]["pointnet_trunk_512"])
     study = last["by_path"]["study"]
     mesh_frame = par["by_path"]["mesh_frame"]
     ros = entry["10d run_ros_node pipeline=False"]
     # K4's launches on the paths above (held to 2 per crop in phase 16)
     k4_entry["launches_by_path"].update({
-        "bench": bench_k4["headline scene"]["crop_prefix"],
-        "bench_bf16": bench_k4["bf16 scene"]["crop_prefix"],
-        "bench_frame": bench_k4["frame"]["crop_prefix"],
+        **{site: n["crop_prefix"] for site, n in scene.items()},
         "frame": launches["crop_prefix"],
         "ros_node": ros["crop_prefix"],
         "warmup": entry["10c warmup"]["crop_prefix"],
@@ -5217,9 +5182,10 @@ def main():
           f"gt_robustness {ex_by['gt_robustness']['gpg_counts']} K1 and "
           f"{ex_by['gt_robustness']['pointnet_trunk']} K2, the demo "
           f"{ex_by['demo']['gpg_counts']} K1 and "
-          f"{ex_by['demo']['pointnet_trunk']} K2; the bench "
-          f"{bench['by_path']['gpg_counts']} K1 and "
-          f"{bench['by_path']['pointnet_trunk']} K2; K3 "
+          f"{ex_by['demo']['pointnet_trunk']} K2; the scene "
+          f"{scene['scene']['pointnet_trunk']} K2 (fp32 and bf16 each), its "
+          f"frame {scene['scene_frame']['gpg_counts']} K1 and "
+          f"{scene['scene_frame']['pointnet_trunk']} K2; K3 "
           f"{k3_entry['launches_by_path']}", flush=True)
     print(f"labeling summary ({card}): {label['gps3']:.1f} labeled grasps/s "
           f"(3-D), {label['gps6']:.1f} (6-D); one torus object "
@@ -5245,7 +5211,8 @@ def main():
                               "gt_robustness":
                                   ex_by["gt_robustness"]["gpg_counts"],
                               "demo": ex_by["demo"]["gpg_counts"],
-                              "bench": bench["by_path"]["gpg_counts"]},
+                              "scene_frame":
+                                  scene["scene_frame"]["gpg_counts"]},
          "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain, "bound_ms": k1_bound,
          "bound_by": k1_by, "library_ms": None},
@@ -5270,7 +5237,7 @@ def main():
              "workflow_detect": ex_by["workflow_detect"]["pointnet_trunk"],
              "gt_robustness": ex_by["gt_robustness"]["pointnet_trunk"],
              "demo": ex_by["demo"]["pointnet_trunk"],
-             "bench": bench["by_path"]["pointnet_trunk"]},
+             **{site: n["pointnet_trunk"] for site, n in scene.items()}},
          "max_abs_err": k2_err["64x500"], "ms": timing["k2_64x500"],
          "plain_ms": timing["k2_plain_64x500"], "bound_ms": k2_bound,
          "bound_by": "operations",

@@ -15,7 +15,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -24,9 +23,11 @@ from ..ops.cloud import estimate_normals_knn
 from ..ops.crop import collect_candidate_clouds
 from ..ops.projection import gpd_projection_features
 from ..utils.profiling import span
-from .scorer import PendingScore, _round_up, _to_host
+from .scorer import (PendingScore, collect_scores, dispatch_padded,
+                     rank_candidates)
 
 CAMERA = (-1.0, 0.0, 0.0)      # along -approach, in the gripper frame
+NUM_CLASSES = 2                # "good" is the best class, 1
 
 
 def gpd_features(clouds, widths, *, project_chann: int, knn_k: int = 30):
@@ -62,10 +63,7 @@ def score_candidates_gpd(model, pc, cand_frames, valid_in, hand_depth, width,
     probs = F.softmax(model(feats), dim=-1)          # deployed quirk
     pred = torch.where(valid, probs.argmax(dim=-1), 0)
     probs = torch.where(valid[:, None], probs, 0.0)
-    score = probs[:, 1]
-    good = (pred == 1) & valid
-    order = torch.argsort(torch.where(good, -score, torch.inf), stable=True)
-    return pred, probs, counts, valid, good, order
+    return rank_candidates(pred, probs, counts, valid)
 
 
 @dataclass
@@ -95,54 +93,16 @@ class GPDScorer:
                             seed: int = 0, valid=None, extra_fetch=None,
                             draws=None):
         """Enqueue the scoring on the device; returns a ``PendingScore``."""
-        dev = self.device
-        cand = torch.as_tensor(np.asarray(candidates, np.float32) if not
-                               isinstance(candidates, torch.Tensor)
-                               else candidates).reshape(-1, 5, 3).to(
-                                   dev, torch.float32)
-        g = cand.shape[0]
-        if g == 0:
-            empty = {"pred": np.zeros((0,), np.int64),
-                     "prob": np.zeros((0, 2), np.float32),
-                     "score": np.zeros((0,), np.float32),
-                     "counts": np.zeros((0,), np.int64),
-                     "valid": np.zeros((0,), bool),
-                     "good_indices": np.zeros((0,), np.int64)}
-            return PendingScore(out=None, extra_fetch=extra_fetch, g=0,
-                                empty=empty)
-        g_pad = max(_round_up(g, self.pad_to), self.pad_to)
-        pad_frame = torch.zeros((g_pad - g, 5, 3), device=dev)
-        pad_frame[:, 1, 0] = 1.0
-        pad_frame[:, 2, 1] = 1.0
-        pad_frame[:, 3, 2] = 1.0
-        valid_in = torch.arange(g_pad, device=dev) < g
-        if valid is not None:
-            v = torch.as_tensor(np.asarray(valid, bool) if not isinstance(
-                valid, torch.Tensor) else valid).to(dev, torch.bool)
-            valid_in = valid_in & torch.cat(
-                [v, torch.zeros((g_pad - g,), dtype=torch.bool, device=dev)])
-        pc_d = torch.as_tensor(np.asarray(pc, np.float32) if not isinstance(
-            pc, torch.Tensor) else pc).to(dev, torch.float32)
-        out = score_candidates_gpd(
-            self.model, pc_d, torch.cat([cand, pad_frame]), valid_in,
-            float(hand_depth), float(width), draws or Draws(seed, dev),
-            num_points=self.num_points, project_chann=self.project_chann,
-            min_points=self.min_points, knn_k=self.knn_k)
-        return PendingScore(out=out, extra_fetch=extra_fetch, g=g)
+        def score(pc_d, cand_p, valid_in):
+            return score_candidates_gpd(
+                self.model, pc_d, cand_p, valid_in, float(hand_depth),
+                float(width), draws or Draws(seed, self.device),
+                num_points=self.num_points, project_chann=self.project_chann,
+                min_points=self.min_points, knn_k=self.knn_k)
+
+        return dispatch_padded(score, pc, candidates, valid, extra_fetch,
+                               pad_to=self.pad_to, device=self.device)
 
     def collect(self, pending: PendingScore):
         """Copy the result (and the caller's extras) to the host."""
-        if pending.out is None:
-            if pending.extra_fetch is not None:
-                return pending.empty, _to_host(pending.extra_fetch)
-            return pending.empty
-        g = pending.g
-        pred, prob, counts, valid, good, order = _to_host(pending.out)
-        pred, prob, counts = pred[:g], prob[:g], counts[:g]
-        valid, good = valid[:g], good[:g]
-        order = order[(order < g) & good[np.minimum(order, g - 1)]][:g]
-        result = {"pred": pred, "prob": prob, "score": prob[:, 1],
-                  "counts": counts, "valid": valid, "good_indices": order}
-        if pending.extra_fetch is not None:
-            return result, _to_host(pending.extra_fetch)
-        return result
+        return collect_scores(pending, NUM_CLASSES)

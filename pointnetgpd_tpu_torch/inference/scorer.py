@@ -22,12 +22,12 @@ the single-device results.
 
 Spans (``utils.profiling.span``): ``score.candidates`` around a fused call,
 ``score.crop``, ``score.forward`` and ``score.rank`` inside it, and
-``score.fetch`` around each device-to-host copy of ``GraspScorer.collect``.
+``score.fetch`` around each device-to-host copy of ``collect_scores``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any
 
 import copy
@@ -64,12 +64,11 @@ def _to_host(tree):
 @dataclass
 class PendingScore:
     """A dispatched scene score: the device tensors and the caller's extras
-    that ``GraspScorer.collect`` copies to the host in one go."""
+    that ``collect_scores`` copies to the host in one go."""
 
-    out: Any                   # device tuple from score_candidates_fused
+    out: Any                   # device tuple (None for 0 candidates)
     extra_fetch: Any           # caller tensors copied with it (or None)
     g: int                     # real (unpadded) candidate count
-    empty: dict | None = None  # precomputed result for 0 candidates
 
 
 @torch.no_grad()
@@ -150,6 +149,72 @@ def score_candidates_fused(model, pc, cand_frames, valid_in, hand_depth,
             return rank_candidates(*scored)
 
 
+def dispatch_padded(score, pc, candidates, valid, extra_fetch, *,
+                    pad_to: int, device):
+    """The scorers' front half. Puts the scene cloud and the (G, 5, 3)
+    candidates on ``device``, pads the candidate axis with unit frames (the
+    crop's normalize stays well-defined) to ``max(round_up(G, pad_to),
+    pad_to)`` as the JAX package pads it, since the padded count picks the
+    crop's strategy and shapes the draws, and builds ``valid_in``, false on
+    the padding and wherever ``valid`` is. ``score(pc, frames, valid_in)``
+    enqueues the scoring; for 0 candidates nothing is enqueued. Returns a
+    ``PendingScore``."""
+    if isinstance(candidates, torch.Tensor):
+        cand = candidates.reshape(-1, 5, 3).to(device, torch.float32)
+    else:
+        cand = torch.from_numpy(np.asarray(candidates, np.float32)
+                                .reshape(-1, 5, 3)).to(device)
+    g = cand.shape[0]
+    if g == 0:
+        return PendingScore(out=None, extra_fetch=extra_fetch, g=0)
+    g_pad = max(_round_up(g, pad_to), pad_to)
+    pad_frame = torch.zeros((g_pad - g, 5, 3), device=device)
+    pad_frame[:, 1, 0] = 1.0
+    pad_frame[:, 2, 1] = 1.0
+    pad_frame[:, 3, 2] = 1.0
+    cand_p = torch.cat([cand, pad_frame])
+    valid_in = torch.arange(g_pad, device=device) < g
+    if valid is not None:
+        v = torch.as_tensor(np.asarray(valid, bool) if not isinstance(
+            valid, torch.Tensor) else valid).to(device, torch.bool)
+        valid_in = valid_in & torch.cat(
+            [v, torch.zeros((g_pad - g,), dtype=torch.bool, device=device)])
+    if isinstance(pc, torch.Tensor):
+        pc_d = pc.to(device, torch.float32)
+    else:
+        pc_d = torch.from_numpy(np.asarray(pc, np.float32)).to(device)
+    return PendingScore(out=score(pc_d, cand_p, valid_in),
+                        extra_fetch=extra_fetch, g=g)
+
+
+def collect_scores(pending: PendingScore, k: int):
+    """The scorers' back half: copy a dispatched ``k``-class result (and
+    the caller's extras) to the host and cut it to the real candidates;
+    ``score`` is the best class's probability and ``good_indices`` the good
+    candidates in ranked order. Returns the dict, or (dict, extras)."""
+    g = pending.g
+    if pending.out is None:              # 0 candidates: nothing ran
+        pred, prob = np.zeros((0,), np.int64), np.zeros((0, k), np.float32)
+        counts, valid = np.zeros((0,), np.int64), np.zeros((0,), bool)
+        order = np.zeros((0,), np.int64)
+    else:
+        pred, prob, counts, valid, good, order = _to_host(pending.out)
+        pred, prob, counts = pred[:g], prob[:g], counts[:g]
+        valid, good = valid[:g], good[:g]
+        order = order[(order < g) & good[np.minimum(order, g - 1)]][:g]
+    result = {
+        "pred": pred,
+        "prob": prob,
+        "score": prob[:, k - 1],
+        "counts": counts,
+        "valid": valid,
+        "good_indices": order,
+    }
+    if pending.extra_fetch is not None:
+        return result, _to_host(pending.extra_fetch)
+    return result
+
+
 @dataclass
 class GraspScorer:
     """Loaded model + padding policy. Candidate counts vary per frame; the
@@ -167,7 +232,6 @@ class GraspScorer:
     crop_recenter: bool = False
     device: Any = "cuda"
     mesh: Any = None
-    _best_class: int = field(init=False)
 
     def __post_init__(self):
         if self.mesh is not None:
@@ -180,7 +244,6 @@ class GraspScorer:
         self.model = self.model.to(self.device).eval()
         self._models = (pmesh.replicate(self.model, self.mesh)
                         if self.mesh is not None else None)
-        self._best_class = self.k - 1
 
     def _sharded(self, fn, draws, *batched, shared=()):
         """``fn(model, *shard's rows of batched, *shared, draws)`` on every
@@ -277,75 +340,24 @@ class GraspScorer:
                             draws=None):
         """Enqueue the scoring on the device and return a ``PendingScore``
         without copying anything to the host."""
-        dev = self.device
-        if isinstance(candidates, torch.Tensor):
-            cand = candidates.reshape(-1, 5, 3).to(dev, torch.float32)
-        else:
-            cand = torch.from_numpy(np.asarray(candidates, np.float32)
-                                    .reshape(-1, 5, 3)).to(dev)
-        if cand.shape[0] == 0:
-            empty = {
-                "pred": np.zeros((0,), np.int64),
-                "prob": np.zeros((0, self.k), np.float32),
-                "score": np.zeros((0,), np.float32),
-                "counts": np.zeros((0,), np.int64),
-                "valid": np.zeros((0,), bool),
-                "good_indices": np.zeros((0,), np.int64),
-            }
-            return PendingScore(out=None, extra_fetch=extra_fetch, g=0,
-                                empty=empty)
-        g = cand.shape[0]
-        g_pad = max(_round_up(g, self.pad_to), self.pad_to)
-        # pad with unit frames to keep the crop's normalize well-defined
-        pad_frame = torch.zeros((g_pad - g, 5, 3), device=dev)
-        pad_frame[:, 1, 0] = 1.0
-        pad_frame[:, 2, 1] = 1.0
-        pad_frame[:, 3, 2] = 1.0
-        cand_p = torch.cat([cand, pad_frame])
-        valid_in = torch.arange(g_pad, device=dev) < g
-        if valid is not None:
-            v = torch.as_tensor(np.asarray(valid, bool) if not isinstance(
-                valid, torch.Tensor) else valid).to(dev, torch.bool)
-            valid_in = valid_in & torch.cat(
-                [v, torch.zeros((g_pad - g,), dtype=torch.bool, device=dev)])
-        if isinstance(pc, torch.Tensor):
-            pc_d = pc.to(dev, torch.float32)
-        else:
-            pc_d = torch.from_numpy(np.asarray(pc, np.float32)).to(dev)
-        draws = draws or Draws(seed, dev)
         kw = dict(num_points=self.num_points, repeat=self.repeat,
                   min_points=self.min_points, crop_recenter=self.crop_recenter)
         hd, w = float(hand_depth), float(width)
-        if self.mesh is None:
-            out = score_candidates_fused(self.model, pc_d, cand_p, valid_in,
-                                         hd, w, draws, **kw)
-        else:
-            out = rank_candidates(*pmesh.gather(self._sharded(
-                lambda m, c, v, p, d: crop_and_score(
-                    m, p, c, v, hd, w, d, batch=g_pad, **kw),
-                draws, cand_p, valid_in, shared=(pc_d,)), dev))
-        return PendingScore(out=out, extra_fetch=extra_fetch, g=g)
+
+        def score(pc_d, cand_p, valid_in):
+            d = draws or Draws(seed, self.device)
+            if self.mesh is None:
+                return score_candidates_fused(self.model, pc_d, cand_p,
+                                              valid_in, hd, w, d, **kw)
+            return rank_candidates(*pmesh.gather(self._sharded(
+                lambda m, c, v, p, ds: crop_and_score(
+                    m, p, c, v, hd, w, ds, batch=cand_p.shape[0], **kw),
+                d, cand_p, valid_in, shared=(pc_d,)), self.device))
+
+        return dispatch_padded(score, pc, candidates, valid, extra_fetch,
+                               pad_to=self.pad_to, device=self.device)
 
     def collect(self, pending: PendingScore):
         """Copy the result (and the caller's extras) to the host and
         postprocess; returns the dict, or (dict, extras)."""
-        if pending.out is None:
-            if pending.extra_fetch is not None:
-                return pending.empty, _to_host(pending.extra_fetch)
-            return pending.empty
-        g = pending.g
-        pred, prob, counts, valid, good, order = _to_host(pending.out)
-        pred, prob, counts = pred[:g], prob[:g], counts[:g]
-        valid, good = valid[:g], good[:g]
-        order = order[(order < g) & good[np.minimum(order, g - 1)]][:g]
-        result = {
-            "pred": pred,
-            "prob": prob,
-            "score": prob[:, self._best_class],
-            "counts": counts,
-            "valid": valid,
-            "good_indices": order,
-        }
-        if pending.extra_fetch is not None:
-            return result, _to_host(pending.extra_fetch)
-        return result
+        return collect_scores(pending, self.k)

@@ -35,8 +35,6 @@ from .fp import sqrt
 launches = 0             # kernel launches (CUDA path only)
 # the kernel's output widths (template instances of csrc/pointnet_trunk.cu)
 K2_WIDTHS = (512, 1024)
-# ... and the launches of each width (their sum is ``launches``)
-launches_by_width = dict.fromkeys(K2_WIDTHS, 0)
 
 # layer 3's K axis within each group of 8 input channels, as the kernel's A
 # fragments hold them (csrc/pointnet_trunk.cu): column j takes channel
@@ -216,5 +214,4 @@ def _launch(x, folded):
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "pointnet_trunk_launch")
     launches += 1
-    launches_by_width[h3] += 1
     return out

@@ -18,19 +18,18 @@ import pytest
 import torch
 
 from pointnetgpd_tpu.inference import gpd_scorer as jscorer
-from pointnetgpd_tpu.models.gpd import apply_gpd_classifier, init_gpd_classifier
+from pointnetgpd_tpu.models.gpd import apply_gpd_classifier
 from pointnetgpd_tpu.ops import crop as jcrop
 from pointnetgpd_tpu.ops import projection as jproj
 from pointnetgpd_tpu.training import train as jtrain
 from pointnetgpd_tpu.training.data import SyntheticGraspData
 from pointnetgpd_tpu_torch.inference import gpd_scorer as tscorer
 from pointnetgpd_tpu_torch.models.convert import state_dict_from_jax
-from pointnetgpd_tpu_torch.models.gpd import GPDClassifier
 from pointnetgpd_tpu_torch.ops import projection as tproj
 from pointnetgpd_tpu_torch.ops.cloud import estimate_normals_knn
 from pointnetgpd_tpu_torch.training import train as ttrain
 from pointnetgpd_tpu_torch.training.loop import TrainConfig, Trainer
-from test_torch_slice import JaxDraws, _candidates, _scene
+from test_torch_slice import JaxDraws, _candidates, _gpd_models, _scene
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -78,14 +77,6 @@ class GpdJaxDraws(JaxDraws):
         return _t(jax.random.bernoulli(self.key, 0.5, tuple(shape)))
 
 
-def _model(seed, chann):
-    params = jax.device_get(init_gpd_classifier(jax.random.PRNGKey(seed),
-                                                chann))
-    model = GPDClassifier(chann)
-    model.load_state_dict(state_dict_from_jax(params, {}))
-    return params, model
-
-
 @pytest.mark.parametrize("chann", [3, 12])
 def test_projection_features_match_jax(chann):
     rs = np.random.RandomState(0)
@@ -118,7 +109,7 @@ def test_normals_of_a_batch_equal_each_cloud_alone():
 
 @pytest.mark.parametrize("train", [False, True])
 def test_gpd_classifier_matches_jax(train):
-    params, model = _model(0, 3)
+    params, model = _gpd_models(0)
     x = np.random.RandomState(2).rand(4, 60, 60, 3).astype(np.float32)
     key = jax.random.PRNGKey(3)
     want = jax.jit(lambda p, x: apply_gpd_classifier(
@@ -135,7 +126,7 @@ def test_gpd_train_and_eval_steps_match_jax(cloud_points):
     batch = SyntheticGraspData(batch_size=4, cloud_points=cloud_points,
                                seed=4).next_batch()
     key = jax.random.PRNGKey(5)
-    params, model = _model(1, 3)
+    params, model = _gpd_models(1)
     tx = optax.adam(1e-3)
     kw = dict(num_points=64, project_chann=3, min_point_limit=5)
     js, jm = jtrain.make_gpd_train_step(tx, **kw)(
@@ -168,10 +159,7 @@ def test_gpd_train_and_eval_steps_match_jax(cloud_points):
 def test_gpd_scorer_matches_jax():
     pc = _scene(3)
     cand = _candidates(pc, 24, 4)
-    params, model = _model(2, 3)
-    params["fc2"]["b"] = params["fc2"]["b"] + np.array([0.0, 0.05],
-                                                       np.float32)
-    model.fc2.bias.data += torch.tensor([0.0, 0.05])
+    params, model = _gpd_models(2, favor_good=True)
     valid_in = np.ones(24, bool)
     valid_in[-2:] = False
     out_j = jscorer.score_candidates_gpd(

@@ -15,13 +15,17 @@ import pytest
 import torch
 
 from pointnetgpd_tpu.grasping.gripper import Gripper as JGripper
+from pointnetgpd_tpu.inference import gpd_scorer as jgpd
 from pointnetgpd_tpu.inference import scorer as jscorer
+from pointnetgpd_tpu.models.gpd import init_gpd_classifier
 from pointnetgpd_tpu.models.pointnet import init_pointnet_cls
 from pointnetgpd_tpu.ops import crop as jcrop
 from pointnetgpd_tpu.robot import node as jnode
+from pointnetgpd_tpu_torch.inference import gpd_scorer as tgpd
 from pointnetgpd_tpu_torch.inference import scorer as tscorer
 from pointnetgpd_tpu_torch.models.convert import (pointnet_cls_from_state_dict,
                                                   state_dict_from_jax)
+from pointnetgpd_tpu_torch.models.gpd import GPDClassifier
 from pointnetgpd_tpu_torch.ops import crop as tcrop
 from pointnetgpd_tpu_torch.robot import node as tnode
 
@@ -216,26 +220,54 @@ def test_score_candidates_fused_matches_jax(recenter):
     np.testing.assert_array_equal(order_t[:n_good], order_j[:n_good])
 
 
-def test_grasp_scorer_padding_and_empty():
-    pc = _scene(4)
-    cand = _candidates(pc, 21, 5)                  # not a multiple of pad_to
-    params, state, model = _models(1)
-    js = jscorer.GraspScorer(params=params, state=state, k=3, num_points=96,
-                             pad_to=16, min_points=5)
-    ts = tscorer.GraspScorer(model=model, k=3, num_points=96, pad_to=16,
-                             min_points=5, device="cpu")
-    a = js.score_candidates(pc, cand, 0.06, 0.08, seed=4)
-    b = ts.score_candidates(pc, cand, 0.06, 0.08,
-                            draws=JaxDraws.for_scorer(4))
-    assert b["pred"].shape == (21,)
+def _gpd_models(seed, chann=3, favor_good=False):
+    """The JAX package's GPD classifier and the port's with its weights."""
+    params = jax.device_get(init_gpd_classifier(jax.random.PRNGKey(seed),
+                                                chann))
+    if favor_good:
+        params["fc2"]["b"] = params["fc2"]["b"] + np.array([0.0, 0.05],
+                                                           np.float32)
+    model = GPDClassifier(chann)
+    model.load_state_dict(state_dict_from_jax(params, {}))
+    return params, model
+
+
+@pytest.mark.parametrize("g", [0, 5, 16, 17])
+@pytest.mark.parametrize("kind", ["pointnet", "gpd"])
+def test_scorer_padding_and_empty(kind, g):
+    """Both scorers through ``dispatch_candidates``/``collect`` at
+    pad_to=16 (g below, at and one past the multiple) against the JAX
+    package's scorer of that kind under the same draws, the last candidate
+    masked by ``valid``; the caller's extras come back with the result, also
+    for 0 candidates. The scene's 4,200 points are past the top-k crop's
+    4,096, so 17 candidates, padded to 32, take the prefix crop."""
+    pc = _scene(4, n=1400)
+    cand = _candidates(pc, 17, 5)[:g]
+    valid = np.arange(g) < g - 1
+    if kind == "pointnet":
+        params, state, model = _models(1)
+        k, draws = 3, JaxDraws.for_scorer(4)
+        js = jscorer.GraspScorer(params=params, state=state, k=k,
+                                 num_points=96, pad_to=16, min_points=5)
+        ts = tscorer.GraspScorer(model=model, k=k, num_points=96, pad_to=16,
+                                 min_points=5, device="cpu")
+    else:
+        params, model = _gpd_models(2, favor_good=True)
+        k, draws = 2, JaxDraws(k_crop=jax.random.PRNGKey(4))
+        js = jgpd.GPDScorer(params, num_points=64, pad_to=16, min_points=5)
+        ts = tgpd.GPDScorer(model, num_points=64, pad_to=16, min_points=5,
+                            device="cpu")
+    a = js.score_candidates(pc, cand, 0.06, 0.08, seed=4, valid=valid)
+    b, extras = ts.score_candidates(pc, cand, 0.06, 0.08, valid=valid,
+                                    extra_fetch=(torch.ones(2),), draws=draws)
+    np.testing.assert_array_equal(extras[0], np.ones(2, np.float32))
+    assert b["pred"].shape == b["score"].shape == (g,)
+    assert b["prob"].shape == (g, k)
     for name in ("pred", "counts", "valid", "good_indices"):
         np.testing.assert_array_equal(b[name], np.asarray(a[name]), name)
     np.testing.assert_allclose(b["score"], np.asarray(a["score"]), atol=1e-4)
-    empty = ts.score_candidates(pc, np.zeros((0, 5, 3), np.float32), 0.06,
-                                0.08, extra_fetch=(torch.ones(2),))
-    res, extras = empty
-    assert res["pred"].shape == (0,) and res["prob"].shape == (0, 3)
-    np.testing.assert_array_equal(extras[0], np.ones(2, np.float32))
+    if g:
+        assert not b["valid"][-1]
 
 
 # --------------------------------------------------------- the whole frame
@@ -314,3 +346,61 @@ def test_adaptive_bucket_overflow_redo_and_stream():
         np.testing.assert_array_equal(streamed[i]["all_frames"],
                                       one["all_frames"])
         np.testing.assert_array_equal(streamed[i]["pred"], one["pred"])
+
+
+def _bucket_detector(adaptive, n_voxel=500, raw_pad_to=None):
+    """The detector of the JAX package's adaptive-bucket tests
+    (tests/test_robot.py ``_make_det``)."""
+    _, _, model = _models(0, favor_best=False)
+    return tnode.GraspDetector(
+        tscorer.GraspScorer(model=model, k=3, num_points=128, pad_to=16,
+                            min_points=5, device="cpu"),
+        config=tnode.DetectorConfig(
+            num_grasps=12, max_num_samples=32, input_points_num=128,
+            repeat=1, minimal_points_send_to_point_net=5, cloud_pad_to=512,
+            adaptive_bucket=adaptive, adaptive_margin=1.25, n_voxel=n_voxel,
+            raw_pad_to=raw_pad_to))
+
+
+def test_adaptive_bucket_shrinks_and_matches_when_bucket_equal():
+    """A dense scene (4,200 raw points on a coarse voxel grid) runs a
+    smaller bucket after its first frame, with finite scores; a fresh
+    detector over the same stream reproduces it bit for bit."""
+    pts = _scene(5, n=1400)
+    cam = np.array([0.5, 0.5, 1.0], np.float32)
+    det = _bucket_detector(True, n_voxel=40)
+    d1 = det.dispatch_frame(pts, cam, seed=0)
+    det.collect_frame(d1)
+    assert det._last_voxel_count is not None
+    d2 = det.dispatch_frame(pts, cam, seed=1)
+    out2 = det.collect_frame(d2)
+    assert d2[2] < d1[2]                       # the bucket adapted down
+    assert np.isfinite(out2["all_scores"]).all()
+    det_b = _bucket_detector(True, n_voxel=40)
+    det_b.collect_frame(det_b.dispatch_frame(pts, cam, seed=0))
+    out2b = det_b.process_frame(pts, cam, seed=1)
+    np.testing.assert_array_equal(out2["all_frames"], out2b["all_frames"])
+    np.testing.assert_array_equal(out2["all_scores"], out2b["all_scores"])
+
+
+def test_adaptive_overflow_redo_with_coarse_raw_pad():
+    """With raw buckets of 8,192 points and cloud buckets of 512, the redo
+    of an overflowed adaptive bucket takes its bound from the raw count,
+    not the raw-padded length, and equals adaptive_bucket=False."""
+    small = _scene(7, n=200)
+    big = (np.random.RandomState(7).rand(2500, 3) * 0.5 - 0.25).astype(
+        np.float32)
+    big[:, 2] = np.abs(big[:, 2]) + 0.02       # sparse: ~1 voxel a point
+    cam = np.array([0.5, 0.5, 1.0], np.float32)
+    det_a = _bucket_detector(True, raw_pad_to=8192)
+    det_f = _bucket_detector(False, raw_pad_to=8192)
+    det_a.process_frame(small, cam, seed=0)    # sets a small estimate
+    redo = det_a.dispatch_frame(big, cam, seed=1)
+    assert redo[2] < 2560                      # the adapted bucket overflows
+    out_a = det_a.collect_frame(redo)
+    bound = det_f.dispatch_frame(big, cam, seed=1)
+    assert bound[2] == 2560                    # 2,500 raw points, not 8,192
+    out_f = det_f.collect_frame(bound)
+    assert out_a["n_valid"] == out_f["n_valid"]
+    np.testing.assert_array_equal(out_a["all_frames"], out_f["all_frames"])
+    np.testing.assert_array_equal(out_a["all_scores"], out_f["all_scores"])

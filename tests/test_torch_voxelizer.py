@@ -24,6 +24,7 @@ brute force on the CPU.
 import importlib
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -182,6 +183,35 @@ def test_plain_distance_matches_unsigned_distance(seed):
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     assert (got[:10] == 0).all()
+
+
+def test_voxelizer_dense_route_matches_jax():
+    """The dense route on an 8 x 8 UV sphere (128 triangles) over a dim-16
+    grid with SDFGen's padding of 5 cells, against jitted
+    ``_unsigned_distance``, within 1e-6 relative."""
+    r, dim = 0.05, 16
+    th = np.linspace(0.0, np.pi, 9)
+    ph = np.linspace(0.0, 2 * np.pi, 8, endpoint=False)
+    tt, pp = np.meshgrid(th, ph, indexing="ij")
+    verts = np.stack([r * np.sin(tt) * np.cos(pp),
+                      r * np.sin(tt) * np.sin(pp),
+                      r * np.cos(tt)], axis=-1).reshape(-1, 3)
+    tris = []
+    for i in range(8):
+        for j in range(8):
+            a, b = i * 8 + j, i * 8 + (j + 1) % 8
+            tris += [[a, a + 8, b], [b, a + 8, b + 8]]
+    tri_v = verts[np.asarray(tris)].astype(np.float32)
+    res = 2.2 * r / (dim - 11)
+    pts, _ = k3.blocked_grid(dim, dim, dim, -res * (dim - 1) / 2 * np.ones(3),
+                             res)
+    want = np.asarray(jax.jit(jm._unsigned_distance)(jnp.asarray(pts),
+                                                     jnp.asarray(tri_v)))
+    got = k3.unsigned_distance_torch(torch.from_numpy(pts),
+                                     torch.from_numpy(tri_v)).numpy()
+    assert got.shape == want.shape == (dim ** 3,)
+    assert want.min() > 0
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
 
 
 def test_plain_matches_pallas_kernel_in_interpret_mode():
