@@ -312,6 +312,15 @@ Phases, in order; any failure exits non-zero:
    14b and 15a keep K5 on both sides (a float64 and a float32 plane fit
    may part a panel count) and hold it alone on the frame's cloud
    (``hold_k5``).
+19. K6, the keyed top-k crop (``crop_keyed_phase``): at the GPD cell's
+   shape (128 clouds of 50,000 points, 1,000 out) and on one shared
+   20,000-point cloud at 8 grasps (750 out), K6's points and counts equal
+   to its plain version's bit for bit (``takes`` forced false, the same
+   draws), 2 launches a crop; each timed alone with CUDA events (warm,
+   fixed keys and ranks) beside the plain version and its bound; 2 K6
+   launches per GPD feature call (the train step's). ``read_counts``
+   counts K6 on every path; ``plain_crop`` puts ``_keyed_plain`` beside
+   ``_prefix_plain`` on the plain sides of phases 10, 15, 16 and 17.
 
 Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
 slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
@@ -331,7 +340,10 @@ instructions per (query, candidate) pair at 33.5e12 a second, or 6
 conversions between
 float32 and float64 at 16 a clock per SM for each candidate that an exact
 selection admits in a random order, k (1 + ln(P / k)) a query
-(``k5_bound``), whichever takes longer.
+(``k5_bound``), whichever takes longer. K6: the clouds and the keys
+read once with the frames, ranks, selection and output (``k6_bound``), or
+12 float64 instructions and 14 conversions between float32 and float64 a
+point and an output point, whichever takes longer.
 
 TF32 is switched off for torch's matmuls and cuDNN: only K2's own 3xTF32
 products use the tensor cores.
@@ -643,6 +655,7 @@ def k3_ptxas():
 
 
 def _kernel_modules():
+    from pointnetgpd_tpu_torch.ops import crop_keyed as k6
     from pointnetgpd_tpu_torch.ops import crop_prefix as k4
     from pointnetgpd_tpu_torch.ops import gpg_counts as k1
     from pointnetgpd_tpu_torch.ops import knn_normals as k5
@@ -650,7 +663,7 @@ def _kernel_modules():
     from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
 
     return {"gpg_counts": k1, "pointnet_trunk": k2, "point_triangle": k3,
-            "crop_prefix": k4, "knn_normals": k5}
+            "crop_prefix": k4, "knn_normals": k5, "crop_keyed": k6}
 
 
 def zero_counts():
@@ -664,23 +677,25 @@ def read_counts():
 
 def counts_match(got, want):
     """Whether the counts ``got`` of ``read_counts`` equal ``want`` on the
-    kernels ``want`` names (a path whose K4 or K5 count is only recorded
-    leaves ``crop_prefix`` or ``knn_normals`` out)."""
+    kernels ``want`` names (a path whose K4, K5 or K6 count is only
+    recorded leaves ``crop_prefix``, ``knn_normals`` or ``crop_keyed``
+    out)."""
     return all(got[k] == v for k, v in want.items())
 
 
 @contextlib.contextmanager
 def plain_crop():
-    """K4 swapped for its plain version: every prefix crop takes
-    ``ops/crop.py`` ``_prefix_plain``."""
+    """K4 and K6 swapped for their plain versions: every prefix crop takes
+    ``ops/crop.py`` ``_prefix_plain``, every keyed crop ``_keyed_plain``."""
+    from pointnetgpd_tpu_torch.ops import crop_keyed as k6
     from pointnetgpd_tpu_torch.ops import crop_prefix as k4
 
-    takes = k4.takes
-    k4.takes = lambda pc: False
+    takes4, takes6 = k4.takes, k6.takes
+    k4.takes = k6.takes = lambda pc: False
     try:
         yield
     finally:
-        k4.takes = takes
+        k4.takes, k6.takes = takes4, takes6
 
 
 @contextlib.contextmanager
@@ -967,9 +982,9 @@ def voxelizer_phases(torch, card):
               f"{launches}", flush=True)
         if launches != {"gpg_counts": 0, "pointnet_trunk": 0,
                         "point_triangle": 1, "crop_prefix": 0,
-                        "knn_normals": 0}:
+                        "knn_normals": 0, "crop_keyed": 0}:
             fail("the voxelizer path must launch K3 once and K1, K2, K4, "
-                 "K5 never")
+                 "K5, K6 never")
         sdf = read_sdf(sdf_path)
         res = float(sdf.resolution)
         data = sdf.data.cpu().numpy()
@@ -2201,7 +2216,8 @@ def labeling_phases(torch, card, dev="cuda", attempts=256, torus=TORUS,
               f"{len(samplers)} sampler calls", flush=True)
         if launches != {"gpg_counts": 3 * len(samplers) * (dev != "cpu"),
                         "pointnet_trunk": 0, "point_triangle": 0,
-                        "crop_prefix": 0, "knn_normals": 0}:
+                        "crop_prefix": 0, "knn_normals": 0,
+                        "crop_keyed": 0}:
             problems.append("9c: the SDF GPG samplers must launch K1 3 "
                             "times each")
         out["k1_launches"] = launches["gpg_counts"]
@@ -4409,7 +4425,7 @@ def scene_parity(torch, card, dev="cuda", scene_sizes=None,
             m, pc, cands, valid, 0.06, 0.08, Draws(0, dev),
             num_points=NUM_POINTS, repeat=1, min_points=10), {
             "gpg_counts": 0, "pointnet_trunk": 2, "point_triangle": 0,
-            "crop_prefix": 2, "knn_normals": 0})
+            "crop_prefix": 2, "knn_normals": 0, "crop_keyed": 0})
         same, exact, near, e_prob = ranks_agree(got, want)
         print(f"16 {name} ({cands.shape[0]} candidates over "
               f"{pc.shape[0]} points) against the plain route: pred, "
@@ -4429,7 +4445,7 @@ def scene_parity(torch, card, dev="cuda", scene_sizes=None,
     got, want = held("scene_frame", lambda: det.process_frame(pts, cam,
                                                                seed=0), {
         "gpg_counts": 3, "pointnet_trunk": 2, "point_triangle": 0,
-        "crop_prefix": 2, "knn_normals": 0})
+        "crop_prefix": 2, "knn_normals": 0, "crop_keyed": 0})
     same = (got["n_valid"] == want["n_valid"]
             and np.array_equal(got["pred"], want["pred"])
             and np.array_equal(got["counts"], want["counts"]))
@@ -4792,6 +4808,132 @@ def knn_normals_phase(torch, card, dev="cuda", shapes=None, iters=20):
             "bound_by": timing["gpd"]["bound_by"], "library_ms": None,
             "by_shape": timing}
 
+# --------------------------------------------------------------------------
+# Phase 19: K6, the keyed top-k crop
+
+K6_CVT_PER_POINT = 14    # d.x, d.z and, per coordinate, d.y * R[1], the
+#                          inner fma's operand and both roundings
+
+
+def k6_bound(g, p, num_out, per_grasp):
+    """K6's least time on the H100 in ms, with what bounds it and its
+    bytes: the cloud(s), the keys, the frames and boxes read once, the
+    selection written and read again, the ranks read, the counts and the
+    output written; or 12 float64 instructions and ``K6_CVT_PER_POINT``
+    conversions a point of every grasp's cloud and an output point."""
+    p_len = p if p <= 4096 else 16 * -(-p // 16)
+    kk = min(num_out, p)
+    nbytes = ((g if per_grasp else 1) * p * 12 + g * p_len * 4 + g * 18 * 4
+              + 2 * g * kk * 4 + g * num_out * 8 + g * 8 + g * num_out * 12)
+    points = g * (p + num_out)
+    t = {"bytes": nbytes / PEAK_BYTES,
+         "float64 instructions": 12 * points / PEAK_FP64_INSTR,
+         "conversions": K6_CVT_PER_POINT * points / PEAK_CVT64}
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by, nbytes
+
+
+def crop_keyed_phase(torch, card, dev="cuda", shapes=None, iters=50):
+    """Phase 19: K6 against its plain version (``takes`` forced false) at
+    the GPD cell's shape and on one shared cloud, bit for bit; each timed
+    alone (CUDA events, warm, fixed keys and ranks) beside the plain
+    version and its bound; K6's launches per GPD feature call (the train
+    step's), 2. Returns the kernels-line entry."""
+    from pointnetgpd_tpu_torch.draws import Draws
+    from pointnetgpd_tpu_torch.ops import crop as tcrop
+    from pointnetgpd_tpu_torch.ops import crop_keyed as k6
+    from pointnetgpd_tpu_torch.training.train import make_gpd_feature_fn
+
+    dev = torch.device(dev)
+    # (grasps, points, num_out, one cloud per grasp)
+    shapes = shapes or {"gpd": (128, 50000, 1000, True),
+                        "shared": (8, 20000, 750, False)}
+    rs = np.random.RandomState(19)
+    timing = {}
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for name, (g, p, n, per_grasp) in shapes.items():
+        pc = (box_face_clouds(rs, g, p) if per_grasp
+              else box_face_clouds(rs, 1, p)[0])
+        w = rs.uniform(0.02, 0.2, g)
+        hi = np.stack([w / 4, w / 2, w / 4], 1)
+        centers = rs.normal(0.0, 0.01, (g, 3))
+        centers[0] = 10.0                       # a grasp with no point
+        args = [t(a.astype(np.float32)) for a in (
+            pc, centers, np.linalg.qr(rs.randn(g, 3, 3))[0], -hi, hi)]
+        n0 = k6.launches
+        got = tcrop._crop_batch(*args, n, Draws(0, dev))
+        n_k6 = k6.launches - n0
+        with plain_crop():
+            want = tcrop._crop_batch(*args, n, Draws(0, dev))
+        equal = (got[1].dtype == want[1].dtype == torch.int64
+                 and got[0].dtype == want[0].dtype
+                 and torch.equal(got[1], want[1])
+                 and torch.equal(got[0].view(torch.int32),
+                                 want[0].view(torch.int32)))
+        c = got[1]
+        clouds = f"{g} clouds" if per_grasp else "one cloud"
+        print(f"19 K6 {name} ({g} grasps, {clouds} of {p} points, {n} "
+              f"out): {n_k6} launches, equal to the plain version bit for "
+              f"bit: {equal}; counts 0: {int((c == 0).sum())}, 1..{n}: "
+              f"{int(((c > 0) & (c <= n)).sum())}, over {n}: "
+              f"{int((c > n).sum())}", flush=True)
+        if n_k6 != 2 or not equal:
+            fail(f"phase 19: K6 at the {name} shape: {n_k6} launches, "
+                 f"equal {equal}")
+        # the crop alone: fixed keys and fixed ranks
+        keys = Draws(1, dev).crop_keys(g, k6.key_len(p))
+        fixed = Draws(1, dev).crop_ranks(c, n)
+
+        class Fixed:
+            @staticmethod
+            def crop_ranks(count, num_out):
+                return fixed
+
+        rest = args[1:]
+        ms = cuda_ms(torch, lambda: k6.crop(args[0], keys, *rest, n, Fixed),
+                     iters)
+        plain_ms = cuda_ms(torch, lambda: tcrop._keyed_plain(
+            args[0], keys, *rest, n, Fixed), max(iters // 5, 2))
+        bound, by, nbytes = k6_bound(g, p, n, per_grasp)
+        timing[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "bytes": nbytes}
+        print(f"19 K6 {name}: {ms:.4f} ms (two launches), plain version "
+              f"{plain_ms:.4f} ms; bound {bound:.5f} ms by {by} ({nbytes} "
+              f"bytes), {100 * bound / ms:.2f}% ({card})", flush=True)
+
+    # launches per GPD feature call (the train step's)
+    b, n = 128, 1000
+    clouds = t(box_face_clouds(rs, b, 50000))
+    grasps = torch.zeros((b, 12), device=dev)
+    grasps[:, :3] = clouds.mean(1)
+    axes = t(rs.randn(b, 3).astype(np.float32))
+    grasps[:, 3:6] = axes / axes.norm(dim=1, keepdim=True)
+    grasps[:, 6] = 0.08
+    transforms = torch.eye(4, device=dev).expand(b, 4, 4).contiguous()
+    features = make_gpd_feature_fn(num_points=n, project_chann=12)
+    n0 = k6.launches
+    with torch.no_grad():
+        features(grasps, clouds, transforms, Draws(0, dev))
+    per_step = k6.launches - n0
+    torch.cuda.synchronize()
+    print(f"19 K6 launches: {per_step} per GPD feature call (the train "
+          f"step's)", flush=True)
+    if per_step != 2:
+        fail(f"phase 19: K6 launched {per_step} times in a GPD feature call,"
+             f" not 2")
+    return {"name": "crop_keyed", "route": "cuda",
+            "source": "pointnetgpd_tpu_torch/csrc/crop_keyed.cu",
+            "replaces": None, "launches": per_step,
+            "launches_by_path": {"gpd_train": per_step},
+            "max_abs_err": 0.0,
+            "ms": timing["gpd"]["ms"], "plain_ms": timing["gpd"]["plain_ms"],
+            "bound_ms": timing["gpd"]["bound_ms"],
+            "bound_by": timing["gpd"]["bound_by"], "library_ms": None,
+            "by_shape": timing}
+
 
 def main():
     import torch
@@ -5135,6 +5277,8 @@ def main():
     k4_entry = crop_kernel_phase(torch, card)
     # 18. K5, exact k-NN plane normals
     k5_entry = knn_normals_phase(torch, card)
+    # 19. K6, the keyed top-k crop
+    k6_entry = crop_keyed_phase(torch, card)
     study = last["by_path"]["study"]
     mesh_frame = par["by_path"]["mesh_frame"]
     ros = entry["10d run_ros_node pipeline=False"]
@@ -5246,6 +5390,7 @@ def main():
         par["k512"],
         k4_entry,
         k5_entry,
+        k6_entry,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

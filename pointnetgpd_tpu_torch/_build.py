@@ -27,7 +27,7 @@ BUILD_DIR = _HERE / "_build"
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source flags: the panel-count scan, the crop and the k-NN normals must
+# per-source flags: the panel-count scan, the crops and the k-NN normals must
 # not contract their arithmetic into other FMAs than the ones they spell out
 SOURCES = {
     "gpg_counts.cu": ["-fmad=false"],
@@ -35,6 +35,7 @@ SOURCES = {
     "point_triangle.cu": [],
     "crop_prefix.cu": ["-fmad=false"],
     "knn_normals.cu": ["-fmad=false"],
+    "crop_keyed.cu": ["-fmad=false"],
 }
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -58,6 +59,12 @@ SIGNATURES = {
     # pts, B, P, k, cam (or null), cam_x, cam_y, cam_z, out, idx_out (or
     # null), stream
     "knn_normals_launch": [P, I, I, I, P, F, F, F, P, P, P],
+    # pc, cloud_stride, P, seg_len, G, centers, rot, box_lo, box_hi, keys,
+    # kk, scratch (or null), perm, count, stream
+    "crop_keyed_select_launch": [P, I, I, I, I, P, P, P, P, P, I, P, P, P, P],
+    # pc, cloud_stride, P, seg_len, G, centers, rot, perm, kk, count, r,
+    # num_out, out, stream
+    "crop_keyed_gather_launch": [P, I, I, I, I, P, P, P, I, P, P, I, P, P],
 }
 
 _LIB = None

@@ -20,11 +20,15 @@ The shared-cloud crops take one of the three exact selection strategies of
   launches of kernel K4 (``ops/crop_prefix.py``), ``_prefix_plain``
   elsewhere (the per-sample training crop of
   ``collect_grasp_clouds_batched`` takes this route at any G and P);
-- two-stage top-k (G < 32, P > 4096): the cloud strided-interleaved into 16
-  segments; the JAX package's per-segment top-L followed by a top-k over the
-  survivors selects what one stable top-k over the interleaved layout does,
-  which is what the port computes;
+- two-stage top-k (P > 4096: G < 32 on a shared cloud, or one cloud per
+  grasp in ``_crop_batch``): the cloud strided-interleaved into 16
+  segments; the JAX package's per-segment top-L followed by a top-k over
+  the survivors selects what one stable top-k over the interleaved layout
+  does, which is what the port computes;
 - direct top-k (P <= 4096).
+
+The last two are the keyed route: on the card the two launches of kernel K6
+(``ops/crop_keyed.py``), ``_keyed_plain`` elsewhere.
 
 Random numbers come from a ``draws.Draws``-like object (``crop_perm``,
 ``crop_windows``, ``crop_keys``, ``crop_ranks``). Frame coordinates round as
@@ -34,15 +38,13 @@ counts agree exactly.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..utils.profiling import span
-from . import crop_prefix
+from . import crop_keyed, crop_prefix
 from .fp import dot3, fma, lin3, norm3
 
-_SEG = 16
-_DIRECT_TOPK_MAX = 4096
+_DIRECT_TOPK_MAX = crop_keyed.DIRECT_MAX
 _PREFIX_MIN_G = 32
 _BLK = crop_prefix.BLK
 
@@ -125,43 +127,31 @@ def _crop_batch_prefix(pc, centers, rot_rows, box_lo, box_hi, num_out: int,
                          num_out, draws)
 
 
-def _crop_batch(pc, centers, rot_rows, box_lo, box_hi, num_out: int, draws,
-                batch: int | None = None):
-    """Crop + resample for all grasps. pc (P, 3) shared scene cloud, or
-    (G, P, 3) one cloud per grasp (the per-sample crops of the GPD
-    baseline, each the JAX package's G = 1 call, so never the prefix
-    branch); centers (G, 3); rot_rows (G, 3, 3) rows [approach, binormal,
-    minor]; box_lo / box_hi (G, 3). ``batch``: the grasp count that picks
-    the strategy (default G; a shard of a mesh passes the whole batch's).
-    Returns (points (G, num_out, 3) in grasp frames, counts (G,))."""
+def _keyed_plain(pc, keys, centers, rot_rows, box_lo, box_hi, num_out: int,
+                 draws):
+    """The keyed top-k crop in plain PyTorch: K6's plain version and the CPU
+    route. pc (P, 3) shared or (G, P, 3) per grasp; keys (G,
+    crop_keyed.key_len(P)), one per position of the keyed layout: the
+    strided interleave (position s * seg_len + i holds point s + SEG i, a
+    padding slot past the cloud) above ``DIRECT_MAX`` points, the cloud's
+    own order up to it. One stable top-k over that layout selects what the
+    JAX package's per-segment top-L and top-k over the survivors select."""
     g, p_total = centers.shape[0], pc.shape[-2]
     shared = pc.dim() == 2
-    if shared and (g if batch is None else batch) >= _PREFIX_MIN_G \
-            and p_total > _DIRECT_TOPK_MAX:
-        return _crop_batch_prefix(pc, centers, rot_rows, box_lo, box_hi,
-                                  num_out, draws)
     slot_real = None
-    if p_total > _DIRECT_TOPK_MAX:
-        # strided interleave (segment s = points s, s+SEG, ...), the layout
-        # the selection keys are drawn in
-        seg_len = -(-p_total // _SEG)
-        perm_np = np.full((_SEG, seg_len), p_total, np.int64)
-        for s in range(_SEG):
-            run = np.arange(s, p_total, _SEG)
-            perm_np[s, :len(run)] = run
-        slot_real = torch.as_tensor((perm_np < p_total).reshape(-1),
-                                    device=pc.device)
-        pc = pc[..., torch.as_tensor(np.minimum(perm_np.reshape(-1),
-                                                p_total - 1),
-                                     device=pc.device), :]
-    p_len = pc.shape[-2]
+    seg_len = crop_keyed.seg_len(p_total)
+    if seg_len:
+        slot = (torch.arange(crop_keyed.SEG, device=pc.device)[:, None]
+                + crop_keyed.SEG * torch.arange(seg_len, device=pc.device)
+                ).reshape(-1)
+        slot_real = slot < p_total
+        pc = pc[..., torch.clamp(slot, max=p_total - 1), :]
     mask = _in_box(_to_frames(pc[None] if shared else pc, centers, rot_rows),
                    box_lo, box_hi)
     if slot_real is not None:
         mask = mask & slot_real
     count = mask.sum(dim=-1)
-    z = draws.crop_keys(g, p_len).to(pc.device)
-    z = torch.where(mask, z, -torch.inf)
+    z = torch.where(mask, keys, -torch.inf)
     kk = min(num_out, p_total)
     perm = torch.sort(z, dim=1, descending=True, stable=True)[1][:, :kk]
     if kk < num_out:
@@ -172,6 +162,31 @@ def _crop_batch(pc, centers, rot_rows, box_lo, box_hi, num_out: int, draws,
     sel = pc[idx] if shared else pc[torch.arange(g, device=pc.device)[:, None],
                                     idx]
     return _to_frames(sel, centers, rot_rows), count
+
+
+def _crop_batch(pc, centers, rot_rows, box_lo, box_hi, num_out: int, draws,
+                batch: int | None = None):
+    """Crop + resample for all grasps. pc (P, 3) shared scene cloud, or
+    (G, P, 3) one cloud per grasp (the per-sample crops of the GPD
+    baseline, each the JAX package's G = 1 call, so never the prefix
+    branch); centers (G, 3); rot_rows (G, 3, 3) rows [approach, binormal,
+    minor]; box_lo / box_hi (G, 3). ``batch``: the grasp count that picks
+    the strategy (default G; a shard of a mesh passes the whole batch's).
+    The keyed crops run on K6 on a CUDA device (``crop_keyed.takes``), else
+    on the plain version. Returns (points (G, num_out, 3) in grasp frames,
+    counts (G,))."""
+    g, p_total = centers.shape[0], pc.shape[-2]
+    if pc.dim() == 2 and (g if batch is None else batch) >= _PREFIX_MIN_G \
+            and p_total > _DIRECT_TOPK_MAX:
+        return _crop_batch_prefix(pc, centers, rot_rows, box_lo, box_hi,
+                                  num_out, draws)
+    keys = draws.crop_keys(g, crop_keyed.key_len(p_total)).to(pc.device)
+    if crop_keyed.takes(pc):
+        with span("crop.keyed"):
+            return crop_keyed.crop(pc, keys, centers, rot_rows, box_lo,
+                                   box_hi, num_out, draws)
+    return _keyed_plain(pc, keys, centers, rot_rows, box_lo, box_hi, num_out,
+                        draws)
 
 
 def _normalize(v):
