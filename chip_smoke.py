@@ -321,6 +321,13 @@ Phases, in order; any failure exits non-zero:
    launches per GPD feature call (the train step's). ``read_counts``
    counts K6 on every path; ``plain_crop`` puts ``_keyed_plain`` beside
    ``_prefix_plain`` on the plain sides of phases 10, 15, 16 and 17.
+20. K7, PointNet++ sampling and grouping (``pn2_sample_phase``): on one
+   train step's crops (128 x 1,024 points cropped from 20,000-point
+   clouds as the PointNet++ cell makes them, at the model's scale), SA1's
+   and SA2's farthest-point samples and ball queries on K7 equal to the
+   plain versions run on the card, one launch each; each timed alone with
+   CUDA events (warm) beside the plain versions and its bound; 4 K7
+   launches per PointNet++ train step. ``read_counts`` counts K7.
 
 Bounds. K1: the (active frame, real point) pairs inside both fixed-axis
 slabs of the boxes (``slab_pair_mask``, the plain arithmetic, counted from
@@ -343,7 +350,10 @@ selection admits in a random order, k (1 + ln(P / k)) a query
 (``k5_bound``), whichever takes longer. K6: the clouds and the keys
 read once with the frames, ranks, selection and output (``k6_bound``), or
 12 float64 instructions and 14 conversions between float32 and float64 a
-point and an output point, whichever takes longer.
+point and an output point, whichever takes longer. K7: FPS's npoint - 1
+passes of 9 float32 instructions a point at 33.5e12 a second, plus the
+ball query's bytes (the cloud and centroids read, the int64 indices
+written once) (``k7_bound``).
 
 TF32 is switched off for torch's matmuls and cuDNN: only K2's own 3xTF32
 products use the tensor cores.
@@ -660,10 +670,12 @@ def _kernel_modules():
     from pointnetgpd_tpu_torch.ops import gpg_counts as k1
     from pointnetgpd_tpu_torch.ops import knn_normals as k5
     from pointnetgpd_tpu_torch.ops import point_triangle as k3
+    from pointnetgpd_tpu_torch.ops import pointnet2_sample as k7
     from pointnetgpd_tpu_torch.ops import pointnet_trunk as k2
 
     return {"gpg_counts": k1, "pointnet_trunk": k2, "point_triangle": k3,
-            "crop_prefix": k4, "knn_normals": k5, "crop_keyed": k6}
+            "crop_prefix": k4, "knn_normals": k5, "crop_keyed": k6,
+            "pointnet2_sample": k7}
 
 
 def zero_counts():
@@ -982,9 +994,10 @@ def voxelizer_phases(torch, card):
               f"{launches}", flush=True)
         if launches != {"gpg_counts": 0, "pointnet_trunk": 0,
                         "point_triangle": 1, "crop_prefix": 0,
-                        "knn_normals": 0, "crop_keyed": 0}:
+                        "knn_normals": 0, "crop_keyed": 0,
+                        "pointnet2_sample": 0}:
             fail("the voxelizer path must launch K3 once and K1, K2, K4, "
-                 "K5, K6 never")
+                 "K5, K6, K7 never")
         sdf = read_sdf(sdf_path)
         res = float(sdf.resolution)
         data = sdf.data.cpu().numpy()
@@ -2217,7 +2230,7 @@ def labeling_phases(torch, card, dev="cuda", attempts=256, torus=TORUS,
         if launches != {"gpg_counts": 3 * len(samplers) * (dev != "cpu"),
                         "pointnet_trunk": 0, "point_triangle": 0,
                         "crop_prefix": 0, "knn_normals": 0,
-                        "crop_keyed": 0}:
+                        "crop_keyed": 0, "pointnet2_sample": 0}:
             problems.append("9c: the SDF GPG samplers must launch K1 3 "
                             "times each")
         out["k1_launches"] = launches["gpg_counts"]
@@ -4425,7 +4438,8 @@ def scene_parity(torch, card, dev="cuda", scene_sizes=None,
             m, pc, cands, valid, 0.06, 0.08, Draws(0, dev),
             num_points=NUM_POINTS, repeat=1, min_points=10), {
             "gpg_counts": 0, "pointnet_trunk": 2, "point_triangle": 0,
-            "crop_prefix": 2, "knn_normals": 0, "crop_keyed": 0})
+            "crop_prefix": 2, "knn_normals": 0, "crop_keyed": 0,
+            "pointnet2_sample": 0})
         same, exact, near, e_prob = ranks_agree(got, want)
         print(f"16 {name} ({cands.shape[0]} candidates over "
               f"{pc.shape[0]} points) against the plain route: pred, "
@@ -4445,7 +4459,8 @@ def scene_parity(torch, card, dev="cuda", scene_sizes=None,
     got, want = held("scene_frame", lambda: det.process_frame(pts, cam,
                                                                seed=0), {
         "gpg_counts": 3, "pointnet_trunk": 2, "point_triangle": 0,
-        "crop_prefix": 2, "knn_normals": 0, "crop_keyed": 0})
+        "crop_prefix": 2, "knn_normals": 0, "crop_keyed": 0,
+        "pointnet2_sample": 0})
     same = (got["n_valid"] == want["n_valid"]
             and np.array_equal(got["pred"], want["pred"])
             and np.array_equal(got["counts"], want["counts"]))
@@ -4935,6 +4950,131 @@ def crop_keyed_phase(torch, card, dev="cuda", shapes=None, iters=50):
             "by_shape": timing}
 
 
+# --------------------------------------------------------------------------
+# Phase 20: K7, PointNet++ sampling and grouping
+
+def k7_bound(b, n, npoint, nsample):
+    """K7's least time in ms for one set-abstraction level on b clouds of n
+    points, and the ball query's bytes: FPS's npoint - 1 passes of 9 float32
+    instructions a point, plus the cloud and the centroids read and the
+    int64 indices written once."""
+    fps = b * (npoint - 1) * n * 9 / PEAK_FP32_INSTR
+    nbytes = b * n * 12 + b * npoint * 12 + b * npoint * nsample * 8
+    return (fps + nbytes / PEAK_BYTES) * 1e3, nbytes
+
+
+def pn2_crops(torch, dev, rs, batch=128, cloud=20000, n=1024):
+    """One PointNet++ train step's inputs and crops: (the step's
+    arguments but the draws, crops (batch, n, 3) in metres), clouds uniform
+    in an 8 cm cube, grasps at the cloud's mean plus 5 mm noise, random
+    axis and approach angle, 0.08 m wide (``benchmarks/generate.py``)."""
+    from pointnetgpd_tpu_torch.draws import Draws
+    from pointnetgpd_tpu_torch.ops.crop import collect_grasp_clouds_batched
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    clouds = t((rs.rand(batch, cloud, 3) - 0.5) * 0.08)
+    grasps = torch.zeros((batch, 12), device=dev)
+    grasps[:, :3] = clouds.mean(1) + t(rs.randn(batch, 3) * 0.005)
+    axes = t(rs.randn(batch, 3))
+    grasps[:, 3:6] = axes / axes.norm(dim=1, keepdim=True)
+    grasps[:, 6] = 0.08
+    grasps[:, 7] = t(rs.uniform(-np.pi, np.pi, batch))
+    transforms = torch.eye(4, device=dev).expand(batch, 4, 4).contiguous()
+    labels = torch.from_numpy(rs.randint(0, 2, batch)).to(dev)
+    args = (grasps, clouds, transforms, labels, torch.ones(batch, device=dev))
+    x, _, _ = collect_grasp_clouds_batched(grasps, clouds, transforms,
+                                           Draws(0, dev), num_out=n,
+                                           min_point_limit=50)
+    return args, x
+
+
+def pn2_sample_phase(torch, card, dev="cuda", batch=128, cloud=20000,
+                     iters=20):
+    """Phase 20: K7 against its plain versions (``fps_plain``,
+    ``ball_query_plain`` on the same card) on one PointNet++ train step's
+    crops, SA1 then SA2: indices equal, one launch each; each timed alone
+    (CUDA events, warm) beside the plain versions and the bound; K7's
+    launches per PointNet++ train step, 4. Returns the kernels-line
+    entry."""
+    from pointnetgpd_tpu_torch.draws import Draws
+    from pointnetgpd_tpu_torch.models.pointnet2 import (
+        SSG_LAYERS, XYZ_SCALE, PointNet2ClsSSG)
+    from pointnetgpd_tpu_torch.ops import pointnet2_sample as k7
+    from pointnetgpd_tpu_torch.training.train import (
+        init_train_state, make_fused_train_step, make_optimizer)
+
+    dev = torch.device(dev)
+    rs = np.random.RandomState(20)
+    args, x = pn2_crops(torch, dev, rs, batch, cloud)
+    xyz = x * XYZ_SCALE
+    rows = torch.arange(batch, device=dev)[:, None]
+    timing = {}
+    for level, (npoint, radius, nsample, _) in enumerate(SSG_LAYERS[:2], 1):
+        n_pts = xyz.shape[1]
+        n0 = k7.launches
+        picked = k7.farthest_point_sample(xyz, npoint)
+        centroids = xyz[rows, picked]
+        ball = k7.ball_query(xyz, centroids, radius, nsample)
+        launched = k7.launches - n0
+        equal = (torch.equal(picked, k7.fps_plain(xyz, npoint))
+                 and torch.equal(ball, k7.ball_query_plain(
+                     xyz, centroids, radius, nsample)))
+        inside = (k7.sqdist(xyz[:, None], centroids[:, :, None])
+                  < k7.radius2(radius)).sum(-1)
+        found = float(inside.clamp(max=nsample).float().mean())
+        print(f"20 K7 SA{level} ({batch} clouds of {n_pts} points, {npoint} "
+              f"centroids, radius {radius}, {nsample} slots): {launched} "
+              f"launches, equal to the plain versions: {equal}; points a "
+              f"ball {float(inside.float().mean()):.1f}, slots filled "
+              f"{found:.1f} of {nsample}", flush=True)
+        if launched != 2 or not equal:
+            fail(f"phase 20: K7 at SA{level}: {launched} launches, equal "
+                 f"{equal}")
+        fps_ms = cuda_ms(torch, lambda: k7.fps_kernel(xyz, npoint), iters)
+        ball_ms = cuda_ms(torch, lambda: k7.ball_query_kernel(
+            xyz, centroids, radius, nsample), iters)
+        plain_ms = cuda_ms(torch, lambda: (
+            k7.fps_plain(xyz, npoint),
+            k7.ball_query_plain(xyz, centroids, radius, nsample)), 2, warm=1)
+        bound, nbytes = k7_bound(batch, n_pts, npoint, nsample)
+        ms = fps_ms + ball_ms
+        timing[f"sa{level}"] = {"ms": ms, "fps_ms": fps_ms,
+                                "ball_query_ms": ball_ms,
+                                "plain_ms": plain_ms, "bound_ms": bound,
+                                "ball_query_bytes": nbytes,
+                                "slots_filled": found}
+        print(f"20 K7 SA{level}: FPS {fps_ms:.4f} ms, ball query "
+              f"{ball_ms:.4f} ms, plain versions {plain_ms:.4f} ms; bound "
+              f"{bound:.5f} ms (instructions and {nbytes} bytes), "
+              f"{100 * bound / ms:.2f}% ({card})", flush=True)
+        xyz = centroids
+
+    # launches per PointNet++ train step
+    with torch.device(dev):
+        model = PointNet2ClsSSG()
+    state = init_train_state(model.train(), make_optimizer(1e-3))
+    step = make_fused_train_step(num_points=x.shape[1])
+    n0 = k7.launches
+    step(state, *args, Draws(1, dev))
+    per_step = k7.launches - n0
+    torch.cuda.synchronize()
+    print(f"20 K7 launches: {per_step} per PointNet++ train step", flush=True)
+    if per_step != 4:
+        fail(f"phase 20: K7 launched {per_step} times in a PointNet++ train "
+             f"step, not 4")
+    total = {k: sum(v[k] for v in timing.values())
+             for k in ("ms", "plain_ms", "bound_ms")}
+    return {"name": "pointnet2_sample", "route": "cuda",
+            "source": "pointnetgpd_tpu_torch/csrc/pointnet2_sample.cu",
+            "replaces": None, "launches": per_step,
+            "launches_by_path": {"pn2_train": per_step},
+            "max_abs_err": 0.0, **total,
+            "bound_by": "float32 instructions (FPS) and bytes (ball query)",
+            "library_ms": None, "by_shape": timing}
+
+
 def main():
     import torch
 
@@ -5279,6 +5419,8 @@ def main():
     k5_entry = knn_normals_phase(torch, card)
     # 19. K6, the keyed top-k crop
     k6_entry = crop_keyed_phase(torch, card)
+    # 20. K7, PointNet++ sampling and grouping
+    k7_entry = pn2_sample_phase(torch, card)
     study = last["by_path"]["study"]
     mesh_frame = par["by_path"]["mesh_frame"]
     ros = entry["10d run_ros_node pipeline=False"]
@@ -5391,6 +5533,7 @@ def main():
         k4_entry,
         k5_entry,
         k6_entry,
+        k7_entry,
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

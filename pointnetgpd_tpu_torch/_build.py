@@ -27,8 +27,9 @@ BUILD_DIR = _HERE / "_build"
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# per-source flags: the panel-count scan, the crops and the k-NN normals must
-# not contract their arithmetic into other FMAs than the ones they spell out
+# per-source flags: the panel-count scan, the crops, the k-NN normals and the
+# PointNet++ sampling must not contract their arithmetic into other FMAs
+# than the ones they spell out
 SOURCES = {
     "gpg_counts.cu": ["-fmad=false"],
     "pointnet_trunk.cu": [],
@@ -36,6 +37,7 @@ SOURCES = {
     "crop_prefix.cu": ["-fmad=false"],
     "knn_normals.cu": ["-fmad=false"],
     "crop_keyed.cu": ["-fmad=false"],
+    "pointnet2_sample.cu": ["-fmad=false"],
 }
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -65,6 +67,10 @@ SIGNATURES = {
     # pc, cloud_stride, P, seg_len, G, centers, rot, perm, kk, count, r,
     # num_out, out, stream
     "crop_keyed_gather_launch": [P, I, I, I, I, P, P, P, I, P, P, I, P, P],
+    # xyz, B, N, npoint, out, stream
+    "pn2_fps_launch": [P, I, I, I, P, P],
+    # xyz, B, N, centroids, S, r2, nsample, out, stream
+    "pn2_ball_query_launch": [P, I, I, P, I, F, I, P, P],
 }
 
 _LIB = None

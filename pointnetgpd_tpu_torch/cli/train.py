@@ -1,4 +1,5 @@
-"""Training CLI: one entry point for the reference's six training scripts.
+"""Training CLI: one entry point for the reference's six training scripts,
+and for the PointNet++ classifier on the same data.
 
 Port of ``pointnetgpd_tpu/cli/train.py``: main_1v.py / main_1v_mc.py /
 main_fullv.py / main_fullv_mc.py / main_1v_gpd.py / main_fullv_gpd.py
@@ -17,6 +18,8 @@ Variant configs (reference deltas):
   fullv_mc  Full cloud 3-class
   1v_gpd    GPD projection CNN, 3 channels, lr 1e-3
   fullv_gpd GPD projection CNN, 12 channels
+  1v_pn2    PointNet++ SSG classifier (arXiv:1706.02413) on the 1v crops,
+            1024 pts, lr 1e-3 (pointnet2/train.py)
 
 Usage:
   python -m pointnetgpd_tpu_torch.cli.train --variant 1v --mode train --synthetic
@@ -51,6 +54,9 @@ VARIANTS = {
                       thresh_bad=0.6, one_view=False, lr=1e-3, gpd=True,
                       project_chann=12, views_per_sample=20,
                       cloud_points=50000),
+    "1v_pn2": dict(num_classes=2, grasp_points_num=1024, thresh_good=0.6,
+                   thresh_bad=0.6, one_view=True, lr=1e-3, gpd=False,
+                   model="pointnet2_ssg"),
 }
 
 
@@ -139,6 +145,7 @@ def run(args):
         n_devices=args.n_devices,
         gpd=var["gpd"],
         project_chann=var.get("project_chann", 3),
+        model=var.get("model", "pointnet"),
     )
 
     def make_data(tag, seed):

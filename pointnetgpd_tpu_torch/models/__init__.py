@@ -1,4 +1,5 @@
-"""Model family: PointNet classifiers + GPD projection CNN as ``nn.Module``s.
+"""Model family: PointNet classifiers + GPD projection CNN as ``nn.Module``s,
+and the PointNet++ SSG classifier, which the JAX package does not have.
 
 The counterpart of ``pointnetgpd_tpu/models/__init__.py``. The JAX package
 exports functional ``init_*`` / ``apply_*`` pairs over parameter trees; here
@@ -25,6 +26,7 @@ from .pointnet import (
     STN3d,
     pointnet_cls_infer,
 )
+from .pointnet2 import PointNet2ClsSSG, PointNet2SSGfeat
 
 # the JAX package's names whose counterpart is a module above: its
 # constructor (init_*), its forward (apply_*), or loading a reference
@@ -50,6 +52,8 @@ __all__ = [
     "DualPointNetCls",
     "DualPointNetfeat",
     "GPDClassifier",
+    "PointNet2ClsSSG",
+    "PointNet2SSGfeat",
     "PointNetCls",
     "PointNetDenseCls",
     "PointNetfeat",

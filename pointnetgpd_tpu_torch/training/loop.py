@@ -36,6 +36,7 @@ from ..draws import Draws
 from ..parallel import dist as pdist
 from ..models.gpd import GPDClassifier
 from ..models.pointnet import PointNetCls
+from ..models.pointnet2 import PointNet2ClsSSG
 from ..ops.crop import collect_grasp_clouds_batched
 from . import checkpoint as ckpt_lib
 from .train import (init_train_state, make_eval_step, make_fused_train_step,
@@ -93,6 +94,9 @@ class TrainConfig:
     save_interval: int = 1          # epochs between checkpoints (main_1v.py:31)
     log_interval: int = 10          # steps between scalar logs (main_1v.py:30)
     gpd: bool = False                # GPD projection-CNN baseline variant
+    model: str = "pointnet"          # the point-cloud classifier: "pointnet"
+    #                                  (PointNetCls) or "pointnet2_ssg"
+    #                                  (PointNet2ClsSSG); not read with gpd
     project_chann: int = 3           # GPD input channels (3 or 12)
     tag: str = "default"
     model_path: str = "./assets/learned_models"
@@ -143,10 +147,7 @@ class Trainer:
                   min_point_limit=cfg.min_point_limit)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(cfg.seed)      # the modules' initializers
-            model = (GPDClassifier(cfg.project_chann) if cfg.gpd else
-                     PointNetCls(num_points=cfg.grasp_points_num,
-                                 input_chann=cfg.input_chann,
-                                 k=cfg.num_classes))
+            model = self._model(cfg)
         if cfg.gpd:
             self.train_step = make_gpd_train_step(
                 project_chann=cfg.project_chann, group=self.group, **kw)
@@ -158,6 +159,18 @@ class Trainer:
         self.state = init_train_state(model.to(self.device), self.tx)
         self.draws = self._draws(Draws(cfg.seed + 1, self.device))
         self._epoch0 = 0
+
+    @staticmethod
+    def _model(cfg: TrainConfig):
+        if cfg.gpd:
+            return GPDClassifier(cfg.project_chann)
+        if cfg.model == "pointnet2_ssg":
+            return PointNet2ClsSSG(k=cfg.num_classes)
+        if cfg.model != "pointnet":
+            raise ValueError(f"unknown model {cfg.model!r}: pointnet or "
+                             f"pointnet2_ssg")
+        return PointNetCls(num_points=cfg.grasp_points_num,
+                           input_chann=cfg.input_chann, k=cfg.num_classes)
 
     def _draws(self, base):
         """This rank's rows of ``base``'s draws for the global batch."""

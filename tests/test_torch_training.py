@@ -675,7 +675,7 @@ def test_cli_trains_and_tests_each_pointnet_variant(tmp_path, capsys):
     from pointnetgpd_tpu_torch.cli.train import VARIANTS, build_parser, main
 
     assert set(VARIANTS) == {"1v", "1v_mc", "fullv", "fullv_mc", "1v_gpd",
-                             "fullv_gpd"}
+                             "fullv_gpd", "1v_pn2"}
     assert build_parser().parse_args(["--mode", "train"]).device == "cuda"
     common = ["--synthetic", "--device", "cpu", "--batch-size", "8",
               "--cloud-points", "512", "--steps-per-epoch", "2",
